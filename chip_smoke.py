@@ -2,19 +2,24 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``fall_multimodal_tpu_torch/ops/csrc``,
-holds each kernel against its plain PyTorch version at every shape the
-flagship's serving path gives it, serves the reference checkpoint and a
-seeded random flagship (``gstcan_urfall_3stream``, full widths, batch 128)
-through ``Predictor`` and the HTTP server, and prints timings. Any failed
-check raises. The second-to-last line is a JSON object describing each
-kernel; the last line is
+Builds the port's CUDA kernels from ``fall_multimodal_tpu_torch/ops/csrc``
+and holds each against its plain PyTorch version at every shape its serving
+path gives it: the STGCAN-block kernel at the flagship's 14 block shapes, the
+whole-backbone kernel at the single-stream ``stgcan`` model's full width (2
+and 11 classes) and on a short stage plan. Serves the reference checkpoint
+and a seeded random flagship (``gstcan_urfall_3stream``, full widths, batch
+128) through ``Predictor`` and the HTTP server, then a seeded ``stgcan``
+(``default_urfall``; one whole-backbone launch per forward) and a
+``two_stgcan`` the same way, and prints timings. Any failed check raises.
+The second-to-last line is a JSON object describing each kernel; the last
+line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -29,6 +34,11 @@ from fall_multimodal_tpu_torch.configs import load_config, preset_path
 from fall_multimodal_tpu_torch.interop import load_state_dict_file
 from fall_multimodal_tpu_torch.models import build_model
 from fall_multimodal_tpu_torch.ops import build
+from fall_multimodal_tpu_torch.ops.fused_backbone import FusedBackbone
+from fall_multimodal_tpu_torch.ops.fused_backbone_v2 import (
+    fused_backbone_forward,
+    fused_backbone_reference,
+)
 from fall_multimodal_tpu_torch.ops.stgcan_block import (
     fused_stgcan_block,
     stgcan_block_reference,
@@ -46,6 +56,7 @@ BATCH = 128
 SEED = 0
 KERNEL_TOL = 1e-4        # fp32 kernel vs fp32 plain version, other summation order
 MODEL_TOL = 1e-4
+SHORT_PLAN = ((64, 1, False), (128, 2, True))
 # H100 SXM published peaks (NVIDIA data sheet): fp32 outside the tensor
 # cores, HBM3 bandwidth. The kernel runs plain fp32 FMAs.
 PEAK_FP32_FLOPS = 67e12
@@ -87,6 +98,23 @@ def block_cost(n, t, v, cin, folded, stride, mode):
     return flops, nbytes
 
 
+def backbone_cost(n, t, v, cin, folded):
+    """(flops, bytes) of one whole-backbone call: the blocks' operations by
+    :func:`block_cost`'s count plus the pool and the head; x and every
+    constant read once, the logits written once (activations between the
+    blocks are not inputs or outputs of the function)."""
+    flops = 0
+    weights = folded.data_bn_scale.numel() * 2 + folded.cls_w.numel() + folded.cls_b.numel()
+    tt, cc = t, cin
+    for block, (stride, mode) in zip(folded.blocks, folded.stage_plan):
+        flops += block_cost(n, tt, v, cc, block, stride, mode)[0]
+        weights += sum(x.numel() for x in block if x is not None)
+        tt, cc = (tt - 1) // stride + 1, block.bn1_scale.shape[0]
+    classes = folded.cls_b.shape[0]
+    flops += n * (2 * t * v * cin + tt * v * cc + 2 * cc * classes)   # data BN, pool, head
+    return flops, 4 * (n * t * v * cin + n * classes + weights)
+
+
 def block_shapes(pred):
     """Every block call of one flagship forward: (stream, index, T, folded,
     stride, mode), following T through both streams."""
@@ -100,9 +128,10 @@ def block_shapes(pred):
 
 
 def seeded_state_dict(cfg):
-    """Random flagship weights from SEED, with non-trivial BN statistics.
-    Conv and linear weights are scaled from torch's default init to He's
-    variance (2 / fan_in), so activations keep O(1) through both streams."""
+    """Random weights of ``cfg``'s model from SEED, with non-trivial BN
+    statistics. Conv and linear weights are scaled from torch's default init
+    to He's variance (2 / fan_in), so activations keep O(1) through the
+    backbones."""
     torch.manual_seed(SEED)
     model = build_model(cfg)
     gen = torch.Generator().manual_seed(SEED)
@@ -181,6 +210,38 @@ def main() -> int:
             if n == BATCH:
                 per_shape[key] = x
 
+    # ---- phase 2b: the whole-backbone kernel against its plain version ------
+    # full width for default_urfall (2 classes) and default (11 classes), and
+    # the short two-block plan; tolerance KERNEL_TOL absolute on the logits
+    cfg_s = load_config(preset_path("default_urfall"))
+    sd_s = seeded_state_dict(cfg_s)
+    pred_s = Predictor(cfg_s, sd_s, batch_size=BATCH, device=dev)
+    cfg_h = load_config(preset_path("default"))
+    cfg_short = cfg_s.replace(model=dataclasses.replace(
+        cfg_s.model, kwargs={"stages": SHORT_PLAN}))
+    backbones = {"default_urfall": pred_s.folded}
+    for name, c in (("default", cfg_h), ("short_plan", cfg_short)):
+        backbones[name] = Predictor(c, seeded_state_dict(c), batch_size=BATCH,
+                                    device=dev).folded
+    ds = cfg_s.data
+    bb_err = 0.0
+    for name, folded in backbones.items():
+        for n in (BATCH, 1, 37):
+            x = torch.from_numpy(rng.normal(
+                size=(n, ds.seq_len, ds.num_joints, ds.in_channels)).astype(np.float32)).to(dev)
+            out = fused_backbone_forward(x, folded)
+            torch.cuda.synchronize()
+            ref = fused_backbone_reference(x, folded)
+            err = (out - ref).abs().max().item()
+            ok = bool(torch.isfinite(out).all()) and err <= KERNEL_TOL \
+                and out.shape == (n, folded.cls_b.shape[0])
+            log(f"check fused_backbone {name} blocks={len(folded.blocks)} "
+                f"classes={folded.cls_b.shape[0]} N={n:3d}: max_abs_err={err:.3e} "
+                f"(|logit| max {ref.abs().max().item():.3f}; {'ok' if ok else 'FAIL'})")
+            if not ok:
+                raise AssertionError(f"fused_backbone disagrees on {name}, N={n}: {err}")
+            bb_err = max(bb_err, err)
+
     # ---- phase 3: the reference checkpoint served on the card --------------
     sd_ref = load_state_dict_file(FIXTURE)
     g = np.load(FIXTURE)
@@ -196,11 +257,11 @@ def main() -> int:
     d = cfg.data
     skel = rng.normal(size=(BATCH, d.seq_len, d.num_joints, d.in_channels)).astype(np.float32)
     sens = rng.normal(size=(BATCH, d.seq_len, d.sensor_dim)).astype(np.float32)
-    fused_stgcan_block.launches = 0
+    fused_stgcan_block.launches = fused_backbone_forward.launches = 0
     logits = pred.predict_logits(skel, sens)
     launches = fused_stgcan_block.launches
     log(f"main path: Predictor(batch {BATCH}) forward launched stgcan_block {launches} times")
-    if launches != len(calls) or launches != 14:
+    if launches != len(calls) or launches != 14 or fused_backbone_forward.launches:
         raise AssertionError(f"expected 14 stgcan_block launches per forward, saw {launches}")
     cpu_logits = Predictor(cfg, sd_random, batch_size=BATCH, device="cpu").predict_logits(
         skel, sens)
@@ -210,6 +271,39 @@ def main() -> int:
     if logits.shape != (BATCH, d.num_classes) or not np.isfinite(logits).all() \
             or not err_cpu <= MODEL_TOL:
         raise AssertionError(f"main path logits disagree with the CPU run: {err_cpu}")
+
+    # ---- phase 4b: the single-stream stgcan path, one launch per forward ----
+    fused_stgcan_block.launches = fused_backbone_forward.launches = 0
+    logits_s = pred_s.predict_logits(skel)
+    bb_launches, k1_launches = fused_backbone_forward.launches, fused_stgcan_block.launches
+    log(f"stgcan path: Predictor(batch {BATCH}) forward launched fused_backbone "
+        f"{bb_launches} time(s), stgcan_block {k1_launches} times")
+    if bb_launches != 1 or k1_launches != 0:
+        raise AssertionError(f"expected 1 fused_backbone and 0 stgcan_block launches per "
+                             f"stgcan forward, saw {bb_launches} and {k1_launches}")
+    cpu_s = Predictor(cfg_s, sd_s, batch_size=BATCH, device="cpu").predict_logits(skel)
+    err_s = float(np.abs(logits_s - cpu_s).max())
+    log(f"stgcan path logits {logits_s.shape}, finite={np.isfinite(logits_s).all()}, "
+        f"vs CPU max_abs_err={err_s:.3e} (|logits| max {np.abs(logits_s).max():.3f})")
+    if logits_s.shape != (BATCH, ds.num_classes) or not np.isfinite(logits_s).all() \
+            or not err_s <= MODEL_TOL:
+        raise AssertionError(f"stgcan path logits disagree with the CPU run: {err_s}")
+
+    # ---- phase 4c: two_stgcan, both streams through the block kernel --------
+    cfg_t = load_config(preset_path("twostream_stgcan"))
+    sd_t = seeded_state_dict(cfg_t)
+    pred_t = Predictor(cfg_t, sd_t, batch_size=BATCH, device=dev)
+    fused_stgcan_block.launches = fused_backbone_forward.launches = 0
+    logits_t = pred_t.predict_logits(skel)
+    if fused_stgcan_block.launches != 14 or fused_backbone_forward.launches:
+        raise AssertionError(f"expected 14 stgcan_block launches per two_stgcan forward, saw "
+                             f"{fused_stgcan_block.launches}")
+    cpu_t = Predictor(cfg_t, sd_t, batch_size=BATCH, device="cpu").predict_logits(skel)
+    err_t = float(np.abs(logits_t - cpu_t).max())
+    log(f"two_stgcan logits {logits_t.shape}: 14 stgcan_block launches, vs CPU "
+        f"max_abs_err={err_t:.3e} (|logits| max {np.abs(logits_t).max():.3f})")
+    if logits_t.shape != (BATCH, cfg_t.data.num_classes) or not err_t <= MODEL_TOL:
+        raise AssertionError(f"two_stgcan logits disagree with the CPU run: {err_t}")
 
     # ---- phase 5: the HTTP server ------------------------------------------
     srv = PredictionServer(pred, host="127.0.0.1", port=0).start()
@@ -227,6 +321,22 @@ def main() -> int:
             log(f"server: POST {n} windows -> n={got['n']}, max_abs_err={err:.3e}")
             if got["n"] != n or got["predictions"] != want.argmax(-1).tolist() or err > 1e-6:
                 raise AssertionError(f"server answer for {n} windows disagrees ({err})")
+    finally:
+        srv.close()
+    srv = PredictionServer(pred_s, host="127.0.0.1", port=0).start()
+    try:
+        health = http_json(f"http://127.0.0.1:{srv.port}/healthz")
+        if health.get("status") != "ok" or health.get("requires_sensor") is not False:
+            raise AssertionError(f"stgcan healthz answered {health}")
+        sk = rng.normal(size=(5, ds.seq_len, ds.num_joints, ds.in_channels)).astype(np.float32)
+        got = http_json(f"http://127.0.0.1:{srv.port}/v1/predict",
+                        {"skeleton": sk.tolist(), "proba": True})       # no "sensor" key
+        want = pred_s.predict_proba(sk)
+        err = float(np.abs(np.asarray(got["probabilities"]) - want).max())
+        log(f"server (stgcan): POST 5 windows without a sensor -> n={got['n']}, "
+            f"max_abs_err={err:.3e}")
+        if got["n"] != 5 or got["predictions"] != want.argmax(-1).tolist() or err > 1e-6:
+            raise AssertionError(f"stgcan server answer disagrees ({err})")
     finally:
         srv.close()
 
@@ -274,6 +384,38 @@ def main() -> int:
     log(f"streaming push latency (batch 1, {lat['n']} pushes): p50 {lat['p50_ms']:.3f} ms, "
         f"p99 {lat['p99_ms']:.3f} ms")
 
+    # the whole-backbone kernel and the stgcan path
+    x_s = torch.from_numpy(skel).to(dev)
+    folded_s = pred_s.folded
+    blockwise = FusedBackbone(pred_s.model)      # the same backbone, one launch per block
+    bb_ms = cuda_ms(lambda: fused_backbone_forward(x_s, folded_s))
+    bb_plain_ms = cuda_ms(lambda: fused_backbone_reference(x_s, folded_s))
+    k1x7_ms = cuda_ms(lambda: blockwise(x_s))
+    bb_flops, bb_bytes = backbone_cost(BATCH, ds.seq_len, ds.num_joints, ds.in_channels, folded_s)
+    bb_flop_ms, bb_byte_ms = bb_flops / PEAK_FP32_FLOPS * 1e3, bb_bytes / PEAK_BYTES * 1e3
+    bb_bound_ms = max(bb_flop_ms, bb_byte_ms)
+    bb_by = "operations" if bb_flop_ms >= bb_byte_ms else "bytes"
+    log(f"time fused_backbone default_urfall N={BATCH}: kernel {bb_ms:.4f} ms (1 launch), "
+        f"plain {bb_plain_ms:.4f} ms, the same backbone in 7 stgcan_block launches "
+        f"{k1x7_ms:.4f} ms, bound {bb_bound_ms:.4f} ms ({bb_by}; {bb_flops / 1e9:.3f} GFLOP, "
+        f"{bb_bytes / 1e6:.2f} MB), {bb_flops / bb_ms / 1e9:.1f} TFLOP/s")
+    x_1 = x_s[:1].contiguous()
+    log(f"time fused_backbone default_urfall N=1: kernel "
+        f"{cuda_ms(lambda: fused_backbone_forward(x_1, folded_s)):.4f} ms, 7 stgcan_block "
+        f"launches {cuda_ms(lambda: blockwise(x_1)):.4f} ms")
+    for _ in range(3):
+        pred_s.predict_logits(skel)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        pred_s.predict_logits(skel)
+    host_s_ms = (time.perf_counter() - t0) * 1e3 / reps
+    log(f"stgcan Predictor batch {BATCH}: host {host_s_ms:.3f} ms/call incl. copies -> "
+        f"{BATCH / host_s_ms * 1e3:.0f} windows/s")
+    lat_s = measure_push_latency(StreamingClassifier(pred_s, seq_len=ds.seq_len), n_pushes=50,
+                                 warmup=5)
+    log(f"stgcan streaming push latency (batch 1, {lat_s['n']} pushes): "
+        f"p50 {lat_s['p50_ms']:.3f} ms, p99 {lat_s['p99_ms']:.3f} ms")
+
     log(json.dumps({"kernels": [{
         "name": "stgcan_block",
         "route": "cuda",
@@ -285,6 +427,18 @@ def main() -> int:
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
+        "library_ms": None,
+    }, {
+        "name": "fused_backbone",
+        "route": "cuda",
+        "source": "fall_multimodal_tpu_torch/ops/csrc/fused_backbone.cu",
+        "replaces": "fall_multimodal_tpu/ops/pallas/fused_backbone_v2.py:212",
+        "launches": bb_launches,
+        "max_abs_err": bb_err,
+        "ms": bb_ms,
+        "plain_ms": bb_plain_ms,
+        "bound_ms": bb_bound_ms,
+        "bound_by": bb_by,
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

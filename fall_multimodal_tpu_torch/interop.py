@@ -7,11 +7,18 @@ a ``best_model.pt``/``checkpoint.pt`` wrapping one) loads as it is:
     sd = load_state_dict_file("best_model.pt")
     load_into(build_model(config), sd)
 
+The packaged Gen-2 code spells some names differently
+(``st_gcan_networks``, ``stgcan_1``/``stgcan_2``, ``lstm``, ``fc``, and a
+standalone STGCAN whose head is an ``fcn`` Linear); a file read by
+:func:`load_state_dict_file` is brought to the notebook spelling by
+:func:`normalize_reference_keys`.
+
 :func:`state_dict_from_jax_variables` carries the JAX package's flax
 ``{"params", "batch_stats"}`` tree (as numpy arrays) into the same
-state_dict: it is the inverse of the JAX package's reference converter
-(``interop.py:_convert_three_stream``), so weights trained there serve here.
-Every path fails loudly on missing, unused or mis-shaped keys.
+state_dict: it is the inverse of the JAX package's reference converters
+(``interop.py:_convert_stgcan`` ... ``_convert_cnn_bilstm``), so weights
+trained there serve here. Every path fails loudly on missing, unused or
+mis-shaped keys.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ __all__ = [
     "DEAD_REFERENCE_KEYS",
     "load_into",
     "load_state_dict_file",
+    "normalize_reference_keys",
     "state_dict_from_jax_variables",
 ]
 
@@ -53,13 +61,52 @@ def _to_numpy(v) -> np.ndarray:
 
 # ----------------------------------------------------- reference files
 
+# Gen-2 attribute names (``Model/combination.py:13-16,33-35``) -> notebook names.
+_GEN2_PREFIXES = (("stgcan_1.", "pts_stream."), ("stgcan_2.", "mot_stream."),
+                  ("lstm.", "sensor."))
+_GEN2_FUSION_HEAD = {"fc.weight": "fcn.weight", "fc.bias": "fcn.bias"}
+
+
+def normalize_reference_keys(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
+    """Bring the Gen-2 spellings of a reference state_dict to the notebook
+    spellings the port's modules carry:
+
+    * ``st_gcan_networks`` -> ``st_gcn_networks`` (any stream);
+    * ``stgcan_1.`` / ``stgcan_2.`` -> ``pts_stream.`` / ``mot_stream.``;
+    * ``lstm.`` (the fusion models' sensor stream) -> ``sensor.``;
+    * the fusion head ``fc.{weight,bias}`` -> ``fcn.{weight,bias}``;
+    * a standalone STGCAN (``data_bn`` at the root) whose head is an ``fcn``
+      Linear ``(O, I)`` -> the ``cls`` 1x1 conv ``(O, I, 1, 1)``.
+
+    Keys already in the notebook spelling pass through; a key that both
+    spellings would claim raises. Nothing else is renamed or dropped, so an
+    unknown key still fails in :func:`load_into`.
+    """
+    out: Dict[str, Any] = {}
+    for key, value in state_dict.items():
+        new = _GEN2_FUSION_HEAD.get(key, key)
+        for old, repl in _GEN2_PREFIXES:
+            if new.startswith(old):
+                new = repl + new[len(old):]
+        new = new.replace("st_gcan_networks.", "st_gcn_networks.")
+        if new in out:
+            raise ValueError(f"state_dict holds {key!r} under two spellings ({new!r})")
+        out[new] = value
+    if "data_bn.weight" in out and "cls.weight" not in out and "fcn.weight" in out:
+        weight = _to_numpy(out.pop("fcn.weight"))
+        out["cls.weight"] = weight[:, :, None, None] if weight.ndim == 2 else weight
+        out["cls.bias"] = out.pop("fcn.bias")
+    return out
+
+
 def load_state_dict_file(path: str) -> Dict[str, np.ndarray]:
     """Read a reference checkpoint into ``{name: np.ndarray}``.
 
     Takes an ``.npz`` of named arrays, or a ``.pt``/``.pth`` holding a raw
     state_dict or one wrapped under ``model``/``state_dict``/
     ``model_state_dict`` (``main.py:323-341``). Drops
-    :data:`DEAD_REFERENCE_KEYS`, and an ``.npz``'s :data:`FIXTURE_ARRAYS`.
+    :data:`DEAD_REFERENCE_KEYS`, and an ``.npz``'s :data:`FIXTURE_ARRAYS`;
+    Gen-2 spellings are normalised (:func:`normalize_reference_keys`).
     """
     if path.endswith(".npz"):
         with np.load(path) as blob:
@@ -77,6 +124,7 @@ def load_state_dict_file(path: str) -> Dict[str, np.ndarray]:
         sd = {k: _to_numpy(v) for k, v in blob.items()}
     else:
         raise ValueError(f"checkpoint {path!r} is not .npz, .pt or .pth")
+    sd = normalize_reference_keys(sd)
     for key in DEAD_REFERENCE_KEYS:
         sd.pop(key, None)
     return sd
@@ -153,6 +201,11 @@ def _conv1d_inv(kernel: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(np.transpose(kernel, (2, 1, 0)))
 
 
+def _join(prefix: str, name: str) -> str:
+    """``prefix.name``, or ``name`` at the root (empty prefix)."""
+    return f"{prefix}.{name}" if prefix else name
+
+
 class _Writer:
     def __init__(self, params: _FlaxReader, stats: _FlaxReader):
         self.p, self.s = params, stats
@@ -173,13 +226,14 @@ class _Writer:
         self.sd[f"{theirs}.bias"] = self.p(*ours, "bias")
 
     def backbone(self, theirs: str, ours: str, stages, in_channels: int, A) -> None:
-        self.sd[f"{theirs}.A"] = A
-        self.bn(f"{theirs}.data_bn", ours, "data_bn")
+        self.sd[_join(theirs, "A")] = A
+        self.bn(_join(theirs, "data_bn"), ours, "data_bn")
         cin = in_channels
         for i, (cout, stride, residual) in enumerate(stages):
-            self.block(f"{theirs}.st_gcn_networks.{i}", ours, f"block{i}",
+            self.block(_join(theirs, f"st_gcn_networks.{i}"), ours, f"block{i}",
                        proj=residual and (cin != cout or stride != 1))
-            self.sd[f"{theirs}.edge_importance.{i}"] = self.p(ours, f"edge_importance_{i}")
+            self.sd[_join(theirs, f"edge_importance.{i}")] = self.p(
+                ours, f"edge_importance_{i}")
             cin = cout
 
     def block(self, tb: str, *blk: str, proj: bool) -> None:
@@ -200,21 +254,22 @@ class _Writer:
         for direction, tag in (("fwd", ""), ("bwd", "_reverse")):
             cell = ours + ("BiLSTMLayer_0", direction)
             for gate in ("ih", "hh"):
-                self.sd[f"{theirs}.lstm1.weight_{gate}_l0{tag}"] = _dense_inv(
+                self.sd[_join(theirs, f"lstm1.weight_{gate}_l0{tag}")] = _dense_inv(
                     self.p(*cell, gate, "kernel"))
-                self.sd[f"{theirs}.lstm1.bias_{gate}_l0{tag}"] = self.p(*cell, gate, "bias")
-        self.bn(f"{theirs}.batchnorm", *ours, "BatchNorm_0")
+                self.sd[_join(theirs, f"lstm1.bias_{gate}_l0{tag}")] = self.p(
+                    *cell, gate, "bias")
+        self.bn(_join(theirs, "batchnorm"), *ours, "BatchNorm_0")
         att = ours + ("MlpChannelAttention_0",)
-        self.dense(f"{theirs}.channelattention.attention.0", *att, "Dense_0")
-        self.dense(f"{theirs}.channelattention.attention.2", *att, "Dense_1")
-        self.dense(f"{theirs}.fc.1", *ours, "Dense_0")
+        self.dense(_join(theirs, "channelattention.attention.0"), *att, "Dense_0")
+        self.dense(_join(theirs, "channelattention.attention.2"), *att, "Dense_1")
+        self.dense(_join(theirs, "fc.1"), *ours, "Dense_0")
 
     def cnn_bilstm_head(self, theirs: str, *ours: str) -> None:
         cnn = ours + ("Cnn1d_0",)
         for j, layer in enumerate(("layer1", "layer2")):
-            self.dense(f"{theirs}.cnn.{layer}.0", *cnn, f"Conv_{j}", inv=_conv1d_inv)
-            self.bn(f"{theirs}.cnn.{layer}.1", *cnn, f"BatchNorm_{j}")
-        self.bilstm_head(f"{theirs}.bilstm", *ours, "BiLSTMHead_0")
+            self.dense(_join(theirs, f"cnn.{layer}.0"), *cnn, f"Conv_{j}", inv=_conv1d_inv)
+            self.bn(_join(theirs, f"cnn.{layer}.1"), *cnn, f"BatchNorm_{j}")
+        self.bilstm_head(_join(theirs, "bilstm"), *ours, "BiLSTMHead_0")
 
 
 def state_dict_from_jax_variables(config: Config,
@@ -225,20 +280,39 @@ def state_dict_from_jax_variables(config: Config,
     Raises if a flax leaf is left unused or the result does not fit the
     port's model key for key and shape for shape.
     """
-    from fall_multimodal_tpu_torch.models import build_model
+    from fall_multimodal_tpu_torch.models import (
+        STGCANClassifier,
+        ThreeStreamGSTCAN,
+        TwoStreamSTGCAN,
+        build_model,
+    )
+    from fall_multimodal_tpu_torch.models.sensors import SensorOnlyBiLSTM, SensorOnlyCnnBiLSTM
 
     model = build_model(config)
     w = _Writer(_FlaxReader(variables["params"]),
                 _FlaxReader(variables.get("batch_stats", {})))
-    A = build_adjacency(config.graph.layout, config.graph.strategy).astype(np.float32)
-    stages = model.pts_stream.stages
-    w.backbone("pts_stream", "pts_stream", stages, config.data.in_channels, A)
-    w.backbone("mot_stream", "mot_stream", stages, 2, A)
-    if model.sensor_encoder in ("cnn_bilstm", "cnn"):
-        w.cnn_bilstm_head("sensor", "CnnBiLSTMHead_0")
+    cin = config.data.in_channels
+    if isinstance(model, STGCANClassifier):
+        A = build_adjacency(config.graph.layout, config.graph.strategy).astype(np.float32)
+        w.backbone("", "STGCANBackbone_0", model.stages, cin, A)
+        w.dense("cls", "STGCANBackbone_0", "cls", inv=_conv1x1_inv)
+    elif isinstance(model, (TwoStreamSTGCAN, ThreeStreamGSTCAN)):
+        A = build_adjacency(config.graph.layout, config.graph.strategy).astype(np.float32)
+        stages = model.pts_stream.stages
+        w.backbone("pts_stream", "pts_stream", stages, cin, A)
+        w.backbone("mot_stream", "mot_stream", stages, 2, A)
+        if isinstance(model, ThreeStreamGSTCAN):
+            if model.sensor_encoder in ("cnn_bilstm", "cnn"):
+                w.cnn_bilstm_head("sensor", "CnnBiLSTMHead_0")
+            else:
+                w.bilstm_head("sensor", "BiLSTMHead_0")
+        w.dense("fcn", "Dense_0")
+    elif isinstance(model, SensorOnlyCnnBiLSTM):
+        w.cnn_bilstm_head("", "head")
+    elif isinstance(model, SensorOnlyBiLSTM):
+        w.bilstm_head("", "head")
     else:
-        w.bilstm_head("sensor", "BiLSTMHead_0")
-    w.dense("fcn", "Dense_0")
+        raise ValueError(f"no JAX-variables conversion for model {config.model.name!r}")
     unused = w.p.unused() | w.s.unused()
     if unused:
         raise ValueError(f"flax variables not consumed: {_format_keys(unused)}")

@@ -1,4 +1,8 @@
-from fall_multimodal_tpu_torch.models.fusion import ThreeStreamGSTCAN
+from fall_multimodal_tpu_torch.models.fusion import (
+    STGCANClassifier,
+    ThreeStreamGSTCAN,
+    TwoStreamSTGCAN,
+)
 from fall_multimodal_tpu_torch.models.registry import (
     build_model,
     model_names,
@@ -15,7 +19,9 @@ __all__ = [
     "STGCAN_STAGES",
     "STGCANBackbone",
     "STGCANBlock",
+    "STGCANClassifier",
     "ThreeStreamGSTCAN",
+    "TwoStreamSTGCAN",
     "build_model",
     "model_names",
     "motion_stream",

@@ -1,14 +1,23 @@
-"""Late-fusion three-stream GSTCAN in PyTorch (``models/fusion.py:81-110``).
+"""Late-fusion heads in PyTorch: 1-, 2- and 3-stream models
+(``models/fusion.py:34-110``).
 
-Points STGCAN + motion STGCAN + sensor encoder -> concat (512 + num_classes)
--> ``fcn``. Names follow the notebook reference (``pts_stream``,
-``mot_stream``, ``sensor``, ``fcn``); the notebook's trailing softmax is not
-part of the forward, logits stay logits.
+* :class:`STGCANClassifier` — single-stream skeleton classifier: the
+  backbone with its ``cls`` head, the reference's standalone ``STGCAN``
+  (state_dict keys at the root: ``data_bn.*``, ``st_gcn_networks.*``,
+  ``cls.*``);
+* :class:`TwoStreamSTGCAN` — points + motion, concat 512 -> ``fcn``;
+* :class:`ThreeStreamGSTCAN` — points + motion + sensor encoder, concat
+  (512 + num_classes) -> ``fcn``.
+
+Names follow the notebook reference (``pts_stream``, ``mot_stream``,
+``sensor``, ``fcn``); the notebook's trailing softmax is not part of the
+forward, logits stay logits. Every model shares the forward contract
+``module(skeleton (N,T,V,C), sensor (N,T,S) | None) -> (N, num_classes)``.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -19,6 +28,47 @@ from fall_multimodal_tpu_torch.models.stgcan import (
     STGCANBackbone,
     motion_stream,
 )
+
+
+class STGCANClassifier(STGCANBackbone):
+    """The backbone with its ``cls`` head on the ``(skeleton, sensor)``
+    contract; the sensor stream is ignored."""
+
+    def __init__(self, num_classes: int, in_channels: int = 3,
+                 graph_layout: str = "coco_cut", graph_strategy: str = "spatial",
+                 dropout: float = 0.0,
+                 stages: Sequence[Tuple[int, int, bool]] = STGCAN_STAGES,
+                 dense_gcn: bool = True):
+        super().__init__(in_channels, graph_layout=graph_layout,
+                         graph_strategy=graph_strategy, num_classes=num_classes,
+                         stages=stages, dropout=dropout, dense_gcn=dense_gcn)
+
+    def forward(self, skeleton: torch.Tensor,
+                sensor: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return super().forward(skeleton)
+
+
+class TwoStreamSTGCAN(nn.Module):
+    """Points STGCAN + motion STGCAN -> concat -> ``fcn``; the sensor stream
+    is ignored."""
+
+    def __init__(self, num_classes: int, in_channels: int = 3,
+                 graph_layout: str = "coco_cut", graph_strategy: str = "spatial",
+                 dropout: float = 0.0,
+                 stages: Sequence[Tuple[int, int, bool]] = STGCAN_STAGES,
+                 dense_gcn: bool = True):
+        super().__init__()
+        kw = dict(graph_layout=graph_layout, graph_strategy=graph_strategy,
+                  stages=stages, dropout=dropout, dense_gcn=dense_gcn)
+        self.pts_stream = STGCANBackbone(in_channels, **kw)
+        self.mot_stream = STGCANBackbone(2, **kw)
+        self.fcn = nn.Linear(2 * self.pts_stream.stages[-1][0], num_classes)
+
+    def forward(self, skeleton: torch.Tensor,
+                sensor: Optional[torch.Tensor] = None) -> torch.Tensor:
+        pts = self.pts_stream(skeleton)
+        mot = self.mot_stream(motion_stream(skeleton))
+        return self.fcn(torch.cat([pts, mot], dim=-1))
 
 
 class ThreeStreamGSTCAN(nn.Module):

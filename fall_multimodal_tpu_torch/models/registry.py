@@ -1,9 +1,10 @@
 """Model factory: config -> ``torch.nn.Module`` (``models/registry.py``).
 
-This slice registers the two families that build ``ThreeStreamGSTCAN``:
-``gstcan_3stream`` (notebook CNN_BiLSTM sensor stream, the flagship) and
-``two_stgcan_bilstm`` (packaged Gen-2 BiLSTM sensor stream). Every module
-shares the forward contract ``module(skeleton, sensor) -> (N, K) logits``.
+Registered: the STGCAN families ``stgcan`` (alias ``stgcn``; single
+stream), ``two_stgcan`` (points + motion), ``two_stgcan_bilstm`` and
+``gstcan_3stream`` (points + motion + sensor; the latter is the flagship),
+and the sensor-only ``bilstm`` and ``cnn_bilstm``. Every module shares the
+forward contract ``module(skeleton, sensor) -> (N, K) logits``.
 """
 
 from __future__ import annotations
@@ -13,7 +14,12 @@ from typing import Any, Callable, Dict
 import torch.nn as nn
 
 from fall_multimodal_tpu_torch.configs import Config
-from fall_multimodal_tpu_torch.models.fusion import ThreeStreamGSTCAN
+from fall_multimodal_tpu_torch.models.fusion import (
+    STGCANClassifier,
+    ThreeStreamGSTCAN,
+    TwoStreamSTGCAN,
+)
+from fall_multimodal_tpu_torch.models.sensors import SensorOnlyBiLSTM, SensorOnlyCnnBiLSTM
 
 _REGISTRY: Dict[str, Callable[[Config, Dict[str, Any]], nn.Module]] = {}
 # Families whose forward reads the sensor stream; serving refuses
@@ -49,15 +55,24 @@ def build_model(config: Config) -> nn.Module:
     return _REGISTRY[name](config, dict(config.model.kwargs))
 
 
+def _skeleton_kwargs(cfg: Config, kw) -> Dict[str, Any]:
+    return dict(num_classes=cfg.data.num_classes, in_channels=cfg.data.in_channels,
+                graph_layout=cfg.graph.layout, graph_strategy=cfg.graph.strategy, **kw)
+
+
+@register("stgcan")
+@register("stgcn")  # reference alias
+def _stgcan(cfg: Config, kw):
+    return STGCANClassifier(**_skeleton_kwargs(cfg, kw))
+
+
+@register("two_stgcan")
+def _two_stgcan(cfg: Config, kw):
+    return TwoStreamSTGCAN(**_skeleton_kwargs(cfg, kw))
+
+
 def _three_stream(cfg: Config, kw) -> ThreeStreamGSTCAN:
-    return ThreeStreamGSTCAN(
-        num_classes=cfg.data.num_classes,
-        in_channels=cfg.data.in_channels,
-        sensor_dim=cfg.data.sensor_dim,
-        graph_layout=cfg.graph.layout,
-        graph_strategy=cfg.graph.strategy,
-        **kw,
-    )
+    return ThreeStreamGSTCAN(sensor_dim=cfg.data.sensor_dim, **_skeleton_kwargs(cfg, kw))
 
 
 @register("two_stgcan_bilstm", uses_sensor=True)
@@ -70,3 +85,13 @@ def _two_stgcan_bilstm(cfg: Config, kw):
 def _gstcan_3stream(cfg: Config, kw):
     kw.setdefault("sensor_encoder", "cnn_bilstm")
     return _three_stream(cfg, kw)
+
+
+@register("bilstm", uses_sensor=True)
+def _bilstm(cfg: Config, kw):
+    return SensorOnlyBiLSTM(cfg.data.sensor_dim, cfg.data.num_classes, **kw)
+
+
+@register("cnn_bilstm", uses_sensor=True)
+def _cnn_bilstm(cfg: Config, kw):
+    return SensorOnlyCnnBiLSTM(cfg.data.sensor_dim, cfg.data.num_classes, **kw)

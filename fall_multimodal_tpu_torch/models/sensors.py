@@ -78,6 +78,23 @@ class CnnBiLSTMHead(nn.Module):
         return self.bilstm(self.cnn(sensor))
 
 
+class SensorOnlyBiLSTM(BiLSTMHead):
+    """:class:`BiLSTMHead` on the ``(skeleton, sensor)`` forward contract
+    (the ``bilstm`` family); the reference's standalone ``BiLSTM`` keeps its
+    state_dict keys at the root, so the head is subclassed, not nested."""
+
+    def forward(self, skeleton, sensor: torch.Tensor) -> torch.Tensor:
+        return super().forward(sensor)
+
+
+class SensorOnlyCnnBiLSTM(CnnBiLSTMHead):
+    """:class:`CnnBiLSTMHead` on the ``(skeleton, sensor)`` forward contract
+    (the ``cnn_bilstm`` family)."""
+
+    def forward(self, skeleton, sensor: torch.Tensor) -> torch.Tensor:
+        return super().forward(sensor)
+
+
 def build_sensor_encoder(kind: Optional[str], input_size: int, num_classes: int,
                          feature: str = "mean") -> nn.Module:
     if kind in ("bilstm", "lstm"):

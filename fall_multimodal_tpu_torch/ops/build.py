@@ -3,7 +3,8 @@
 Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
 library with a plain C interface, at first use, into ``ops/_build/`` (listed
 in ``.gitignore``), and loaded with ``ctypes``. A library's file name carries
-a hash of its source and flags, so an edited source is rebuilt. Nothing is
+a hash of every file under ``ops/csrc/`` (the sources share headers) and of
+the flags, so an edit to a source or a header rebuilds it. Nothing is
 prebuilt or downloaded; the CUDA toolkit is found through ``CUDA_HOME``,
 ``/usr/local/cuda`` or ``PATH``.
 """
@@ -21,9 +22,11 @@ from typing import Dict, Iterable, Optional
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = {"stgcan_block": os.path.join(_HERE, "csrc", "stgcan_block.cu")}
+CSRC_DIR = os.path.join(_HERE, "csrc")
+SOURCES = {name: os.path.join(CSRC_DIR, f"{name}.cu")
+           for name in ("stgcan_block", "fused_backbone")}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-I", CSRC_DIR)
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -42,8 +45,16 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(SOURCES[name], "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
+    """Where library ``name`` is built: its file name carries a hash of the
+    flags and of every file under ``csrc/``, headers included."""
+    if name not in SOURCES:
+        raise KeyError(f"no kernel library {name!r}; have {sorted(SOURCES)}")
+    # the include directory's absolute path is not part of the content
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS[:-1]).encode())
+    for fname in sorted(os.listdir(CSRC_DIR)):
+        if fname.endswith((".cu", ".cuh", ".h")):
+            with open(os.path.join(CSRC_DIR, fname), "rb") as fh:
+                digest.update(fname.encode() + b"\0" + fh.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -1,0 +1,183 @@
+"""Whole-backbone fused serving kernel: folding, plain version, CUDA wrapper.
+
+Counterpart of ``fall_multimodal_tpu/ops/pallas/fused_backbone_v2.py``. The
+kernel (``csrc/fused_backbone.cu``) runs an entire eval-mode STGCAN backbone
+in one launch: data BN, every block, the mean over (T, V) and the ``cls``
+head, ``x (N, T, V, Cin) -> logits (N, classes)``. It keeps the factored
+graph convolution at the true channel widths; the TPU kernel's dense
+adjacency fold and its padding to 128 lanes are not carried over, so the
+folded constants here are the per-block ones of
+:func:`~fall_multimodal_tpu_torch.ops.stgcan_block.fold_block_params`.
+:func:`fused_backbone_forward` runs the plain version
+:func:`fused_backbone_reference` for a tensor on the CPU and the CUDA kernel
+for a tensor on the card; it has no other path.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Tuple
+
+import torch
+
+from fall_multimodal_tpu_torch.ops import build
+from fall_multimodal_tpu_torch.ops.stgcan_block import (
+    RESIDUAL_MODES,
+    FoldedBlockParams,
+    block_constant_shapes,
+    check_constant,
+    fold_block_params,
+    fold_bn_module,
+    stgcan_block_reference,
+)
+
+MAX_BLOCKS = 16   # kMaxBlocks of csrc/fused_backbone.cu
+
+
+class FoldedBackbone(NamedTuple):
+    """Inference-time constants of a whole backbone. The kernel reads the
+    tensors through raw pointers: they stay alive as long as this tuple."""
+
+    data_bn_scale: torch.Tensor              # (V*Cin,) data BN folded
+    data_bn_shift: torch.Tensor              # (V*Cin,)
+    blocks: Tuple[FoldedBlockParams, ...]
+    stage_plan: Tuple[Tuple[int, str], ...]  # (stride, residual mode) per block
+    cls_w: torch.Tensor                      # (C_last, classes)
+    cls_b: torch.Tensor                      # (classes,)
+
+
+@torch.no_grad()
+def fold_backbone(backbone) -> FoldedBackbone:
+    """Fold a port ``models.stgcan.STGCANBackbone`` (its running statistics
+    are what gets folded) into kernel constants. The backbone must carry a
+    ``cls`` head."""
+    if backbone.cls is None:
+        raise ValueError(
+            "fold_backbone needs a backbone with a cls head (num_classes set); "
+            "a headless stream runs through ops.fused_backbone.FusedBackbone")
+    scale, shift = fold_bn_module(backbone.data_bn)
+    blocks, plan = [], []
+    for i, block in enumerate(backbone.st_gcn_networks):
+        folded, mode = fold_block_params(block, backbone.A * backbone.edge_importance[i])
+        blocks.append(folded)
+        plan.append((block.stride, mode))
+    return FoldedBackbone(
+        data_bn_scale=scale.contiguous(), data_bn_shift=shift.contiguous(),
+        blocks=tuple(blocks), stage_plan=tuple(plan),
+        cls_w=backbone.cls.weight[:, :, 0, 0].t().contiguous(),
+        cls_b=backbone.cls.bias.contiguous())
+
+
+def fused_backbone_reference(x: torch.Tensor, folded: FoldedBackbone) -> torch.Tensor:
+    """Plain PyTorch version of the kernel on folded constants."""
+    n, t, v, c = x.shape
+    y = (x.reshape(n, t, v * c) * folded.data_bn_scale
+         + folded.data_bn_shift).reshape(n, t, v, c)
+    for block, (stride, mode) in zip(folded.blocks, folded.stage_plan):
+        y = stgcan_block_reference(y, block, stride, mode)
+    return y.mean(dim=(1, 2)) @ folded.cls_w + folded.cls_b
+
+
+_bound_lib = None
+
+
+def _kernel():
+    """The bound C entry point of ``csrc/fused_backbone.cu``."""
+    global _bound_lib
+    if _bound_lib is None:
+        lib = build.load("fused_backbone")
+        fn = lib.fused_backbone_forward
+        fn.argtypes = ([ctypes.c_void_p] * 3
+                       + [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)]
+                       + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.fused_backbone_error_string.argtypes = [ctypes.c_int]
+        lib.fused_backbone_error_string.restype = ctypes.c_char_p
+        _bound_lib = lib
+    return _bound_lib
+
+
+def fused_backbone_forward(x: torch.Tensor, folded: FoldedBackbone) -> torch.Tensor:
+    """The whole backbone, ``x (N, T, V, Cin) -> logits (N, classes)``.
+
+    A CPU tensor goes through :func:`fused_backbone_reference`; a CUDA tensor
+    through the CUDA kernel, one launch whatever the stage plan and N, built
+    at first use. Every launch adds one to ``fused_backbone_forward.launches``.
+    """
+    if x.dim() != 4 or x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError(
+            "x must be a contiguous float32 (N, T, V, Cin) tensor, got "
+            f"{x.dtype} {tuple(x.shape)} (contiguous={x.is_contiguous()})")
+    n, t, v, cin = x.shape
+    if not folded.blocks or len(folded.blocks) != len(folded.stage_plan):
+        raise ValueError(f"folded backbone has {len(folded.blocks)} blocks for a stage "
+                         f"plan of {len(folded.stage_plan)}")
+    k = folded.blocks[0].A.shape[0]
+    # follow (T, C) through the plan; every constant's shape hangs on them
+    checks, ints = [], []
+    act_floats = g_floats = 0
+    tt, cc = t, cin
+    for i, (block, (stride, mode)) in enumerate(zip(folded.blocks, folded.stage_plan)):
+        c = block.bn1_scale.shape[0]
+        if mode not in RESIDUAL_MODES or stride not in (1, 2):
+            raise ValueError(f"block {i}: stride must be 1 or 2 and the residual mode one "
+                             f"of {sorted(RESIDUAL_MODES)}, got {stride}, {mode!r}")
+        if mode == "identity" and (cc != c or stride != 1):
+            raise ValueError(f"block {i}: identity residual needs Cin == C and stride 1, "
+                             f"got Cin={cc}, C={c}, stride={stride}")
+        checks.append((i, block, block_constant_shapes(v, cc, k, c, mode)))
+        ints += [c, stride, RESIDUAL_MODES[mode]]
+        g_floats = max(g_floats, tt * v * c)
+        tt = (tt - 1) // stride + 1
+        act_floats = max(act_floats, tt * v * c)
+        cc = c
+    classes = folded.cls_b.shape[0]
+    head = dict(data_bn_scale=(v * cin,), data_bn_shift=(v * cin,), cls_w=(cc, classes),
+                cls_b=(classes,))
+    if x.device.type == "cpu":
+        return fused_backbone_reference(x, folded)
+    if x.device.type != "cuda" or x.data_ptr() % 16:
+        raise ValueError(f"fused_backbone_forward runs on cpu or cuda (16-byte aligned x), "
+                         f"got {x.device}")
+    if len(folded.blocks) > MAX_BLOCKS or k > 4:
+        raise ValueError(f"the CUDA kernel takes at most {MAX_BLOCKS} blocks and 4 graph "
+                         f"partitions; got {len(folded.blocks)} blocks, K={k}")
+    ptrs = []
+    for i, block, shapes in checks:
+        c = block.bn1_scale.shape[0]
+        if not (4 <= c <= 256 and c % 4 == 0):
+            raise ValueError(f"block {i}: the CUDA kernel takes C <= 256, a multiple of 4; "
+                             f"got C={c}")
+        for name in FoldedBlockParams._fields:
+            if name in shapes:
+                tensor = getattr(block, name)
+                check_constant(f"blocks[{i}].{name}", tensor, shapes[name], x.device)
+                ptrs.append(tensor.data_ptr())
+            else:
+                ptrs.append(None)
+    for name, shape in head.items():
+        check_constant(name, getattr(folded, name), shape, x.device)
+    logits = torch.empty((n, classes), device=x.device, dtype=torch.float32)
+    if n == 0:
+        return logits
+    act_stride, g_stride = (act_floats + 3) & ~3, (g_floats + 3) & ~3
+    act = torch.empty((2, n, act_stride), device=x.device, dtype=torch.float32)
+    scratch = torch.empty((n, g_stride), device=x.device, dtype=torch.float32)
+
+    lib = _kernel()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.fused_backbone_forward(
+            x.data_ptr(), folded.data_bn_scale.data_ptr(), folded.data_bn_shift.data_ptr(),
+            (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * len(ints))(*ints),
+            folded.cls_w.data_ptr(), folded.cls_b.data_ptr(),
+            act[0].data_ptr(), act[1].data_ptr(), scratch.data_ptr(), logits.data_ptr(),
+            n, t, v, cin, k, len(folded.blocks), classes, act_stride, g_stride, stream)
+    if rc != 0:
+        raise RuntimeError("fused_backbone kernel launch failed: "
+                           + lib.fused_backbone_error_string(rc).decode())
+    fused_backbone_forward.launches += 1
+    return logits
+
+
+fused_backbone_forward.launches = 0

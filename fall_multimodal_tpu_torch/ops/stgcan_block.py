@@ -136,7 +136,20 @@ def _kernel():
     return _bound_lib
 
 
-def _check(name: str, t: Optional[torch.Tensor], shape, device) -> None:
+def block_constant_shapes(v: int, cin: int, k: int, c: int, residual_mode: str) -> dict:
+    """``{field: shape}`` of the constants a block with this residual mode
+    hands to a kernel (the ``res_*`` fields only for ``"proj"``)."""
+    h = c // 4
+    shapes = dict(A=(k, v, v), gcn_w=(cin, k * c), gcn_b=(k * c,), bn1_scale=(c,),
+                  bn1_shift=(c,), tconv_w=(TAPS, c, c), tconv_b=(c,), bn2_scale=(c,),
+                  bn2_shift=(c,), se_w1=(c, h), se_b1=(h,), se_w2=(h, c), se_b2=(c,))
+    if residual_mode == "proj":
+        shapes.update(res_w=(cin, c), res_scale=(c,), res_shift=(c,))
+    return shapes
+
+
+def check_constant(name: str, t: Optional[torch.Tensor], shape, device) -> None:
+    """Raise unless ``t`` is what a kernel reads through a raw pointer."""
     if t is None:
         raise ValueError(f"folded.{name} is None but the residual mode needs it")
     if (t.device != device or t.dtype != torch.float32 or not t.is_contiguous()
@@ -168,7 +181,6 @@ def fused_stgcan_block(x: torch.Tensor, folded: FoldedBlockParams, stride: int =
     n, t, v, cin = x.shape
     k = folded.A.shape[0]
     c = folded.bn1_scale.shape[0]
-    h = c // 4
     if residual_mode == "identity" and (cin != c or stride != 1):
         raise ValueError(f"identity residual needs Cin == C and stride 1, got "
                          f"Cin={cin}, C={c}, stride={stride}")
@@ -180,13 +192,9 @@ def fused_stgcan_block(x: torch.Tensor, folded: FoldedBlockParams, stride: int =
     if not (4 <= c <= 256 and c % 4 == 0 and k <= 4):
         raise ValueError(f"the CUDA kernel takes C <= 256, a multiple of 4, and at most "
                          f"4 graph partitions; got C={c}, K={k}")
-    shapes = dict(A=(k, v, v), gcn_w=(cin, k * c), gcn_b=(k * c,), bn1_scale=(c,),
-                  bn1_shift=(c,), tconv_w=(TAPS, c, c), tconv_b=(c,), bn2_scale=(c,),
-                  bn2_shift=(c,), se_w1=(c, h), se_b1=(h,), se_w2=(h, c), se_b2=(c,))
-    if residual_mode == "proj":
-        shapes.update(res_w=(cin, c), res_scale=(c,), res_shift=(c,))
+    shapes = block_constant_shapes(v, cin, k, c, residual_mode)
     for name, shape in shapes.items():
-        _check(name, getattr(folded, name), shape, x.device)
+        check_constant(name, getattr(folded, name), shape, x.device)
     t_out = (t - 1) // stride + 1
     out = torch.empty((n, t_out, v, c), device=x.device, dtype=torch.float32)
     if n == 0:

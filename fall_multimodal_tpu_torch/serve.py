@@ -2,10 +2,15 @@
 
 Counterpart of ``fall_multimodal_tpu/serve.py``:
 
-* :class:`Predictor` — loads weights into the model, folds each STGCAN
-  stream into a :class:`~fall_multimodal_tpu_torch.ops.fused_backbone.
-  FusedBackbone` (every block through the fused STGCAN-block kernel), pads
-  ragged requests to ``batch_size`` and chunks larger ones;
+* :class:`Predictor` — loads weights into the model of any registered
+  family and folds its STGCAN backbones once: the single-stream ``stgcan``
+  classifier runs as one whole-backbone kernel launch
+  (:func:`~fall_multimodal_tpu_torch.ops.fused_backbone_v2.
+  fused_backbone_forward`), each stream of the two- and three-stream models
+  through a :class:`~fall_multimodal_tpu_torch.ops.fused_backbone.
+  FusedBackbone` (every block through the fused STGCAN-block kernel), the
+  sensor-only models as plain modules; pads ragged requests to
+  ``batch_size`` and chunks larger ones;
 * :class:`StreamingClassifier` — online sliding-window inference over a
   live pose/sensor stream;
 * :func:`measure_push_latency` and the ``predict | latency | serve`` CLI.
@@ -24,9 +29,16 @@ import torch
 
 from fall_multimodal_tpu_torch.configs import Config
 from fall_multimodal_tpu_torch.interop import load_into, load_state_dict_file
-from fall_multimodal_tpu_torch.models import ThreeStreamGSTCAN, build_model, uses_sensor
+from fall_multimodal_tpu_torch.models import (
+    STGCANClassifier,
+    ThreeStreamGSTCAN,
+    TwoStreamSTGCAN,
+    build_model,
+    uses_sensor,
+)
 from fall_multimodal_tpu_torch.models.stgcan import motion_stream
 from fall_multimodal_tpu_torch.ops.fused_backbone import FusedBackbone
+from fall_multimodal_tpu_torch.ops.fused_backbone_v2 import fold_backbone, fused_backbone_forward
 
 
 def resolve_device(device) -> torch.device:
@@ -44,11 +56,12 @@ def synchronize(device: torch.device) -> None:
 
 
 class Predictor:
-    """Fixed-batch predictor around a trained three-stream model.
+    """Fixed-batch predictor around a trained model of any registered family.
 
     ``state_dict`` holds the model's weights under the reference names
     (arrays or tensors). Smaller requests are padded to ``batch_size`` by
-    repeating the last window, larger ones chunked.
+    repeating the last window, larger ones chunked. Skeleton-only families
+    take ``sensor=None``.
     """
 
     def __init__(self, config: Config, state_dict: Mapping[str, Any],
@@ -57,13 +70,14 @@ class Predictor:
         self.device = resolve_device(device)
         self.batch_size = batch_size
         self.requires_sensor = uses_sensor(config.model.name)
-        model = build_model(config)
-        if not isinstance(model, ThreeStreamGSTCAN):
-            raise NotImplementedError(
-                f"the port serves ThreeStreamGSTCAN families; got {type(model).__name__}")
-        self.model = load_into(model, state_dict).to(self.device).eval()
-        self.pts_fb = FusedBackbone(self.model.pts_stream)
-        self.mot_fb = FusedBackbone(self.model.mot_stream)
+        self.model = load_into(build_model(config), state_dict).to(self.device).eval()
+        # what the family's forward runs through; folded once, here
+        self.folded = self.pts_fb = self.mot_fb = None
+        if isinstance(self.model, STGCANClassifier):
+            self.folded = fold_backbone(self.model)
+        elif isinstance(self.model, (TwoStreamSTGCAN, ThreeStreamGSTCAN)):
+            self.pts_fb = FusedBackbone(self.model.pts_stream)
+            self.mot_fb = FusedBackbone(self.model.mot_stream)
 
     def with_batch_size(self, batch_size: int) -> "Predictor":
         """A predictor over the same model and folded weights at another
@@ -79,12 +93,20 @@ class Predictor:
         """Serve a reference checkpoint file (``.pt``/``.pth``/``.npz``)."""
         return cls(config, load_state_dict_file(path), **kwargs)
 
-    def forward(self, skeleton: torch.Tensor, sensor: torch.Tensor) -> torch.Tensor:
-        """Logits of one batch already on the device."""
-        pts = self.pts_fb(skeleton)
-        mot = self.mot_fb(motion_stream(skeleton).contiguous())
-        sen = self.model.sensor(sensor)
-        return self.model.fcn(torch.cat([pts, mot, sen], dim=-1))
+    def forward(self, skeleton: torch.Tensor,
+                sensor: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Logits of one batch already on the device: the single-stream
+        classifier as one whole-backbone kernel launch, the two- and
+        three-stream models through one kernel launch per block of each
+        stream, the sensor-only models as plain modules."""
+        if self.folded is not None:
+            return fused_backbone_forward(skeleton, self.folded)
+        if self.pts_fb is None:
+            return self.model(skeleton, sensor)
+        feats = [self.pts_fb(skeleton), self.mot_fb(motion_stream(skeleton).contiguous())]
+        if isinstance(self.model, ThreeStreamGSTCAN):
+            feats.append(self.model.sensor(sensor))
+        return self.model.fcn(torch.cat(feats, dim=-1))
 
     @torch.inference_mode()
     def predict_logits(self, skeleton: np.ndarray,
@@ -230,8 +252,10 @@ def main(argv=None):
         python -m fall_multimodal_tpu_torch.serve serve \\
             --config gstcan_urfall_3stream --checkpoint best_model.pt --port 8000
 
-    ``--input`` is an .npz with ``skeleton`` (N,T,V,C) and ``sensor``
-    (N,T,S). ``--device cpu`` runs on the CPU; the default is the card.
+    ``--input`` is an .npz with ``skeleton`` (N,T,V,C) and, for the families
+    that read it, ``sensor`` (N,T,S). ``--config`` names any preset of a
+    registered family (e.g. ``default_urfall`` for the single-stream
+    ``stgcan``). ``--device cpu`` runs on the CPU; the default is the card.
     """
     import argparse
     import csv

@@ -1,12 +1,13 @@
-"""Card-only tests of the port's CUDA kernel (marker ``cuda``); they skip
+"""Card-only tests of the port's CUDA kernels (marker ``cuda``); they skip
 where there is no GPU. They import neither JAX nor the JAX package, so
 they also run on a GPU machine without JAX, from the repository root:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 (``--noconftest``: the suite's ``conftest.py`` sets up JAX.) Tolerance
-1e-4: the fp32 kernel against the fp32 plain version, summed in another
-order; TF32 is off for the plain version's matmuls and convolutions.
+1e-4: an fp32 kernel against its fp32 plain version, summed in another
+order; TF32 is off for the plain version's matmuls and convolutions. The
+whole-backbone kernel's logits are O(1) here, so 1e-4 is absolute on them.
 """
 
 import pytest
@@ -15,6 +16,11 @@ import torch
 from fall_multimodal_tpu_torch.graphs import build_adjacency
 from fall_multimodal_tpu_torch.models.stgcan import STGCANBackbone, STGCANBlock
 from fall_multimodal_tpu_torch.ops.fused_backbone import FusedBackbone
+from fall_multimodal_tpu_torch.ops.fused_backbone_v2 import (
+    fold_backbone,
+    fused_backbone_forward,
+    fused_backbone_reference,
+)
 from fall_multimodal_tpu_torch.ops.stgcan_block import (
     fold_block_params,
     fused_stgcan_block,
@@ -107,3 +113,70 @@ def test_kernel_refuses_what_it_does_not_take(cuda_device):  # noqa: F811
         with pytest.raises(ValueError, match=error):
             fused_stgcan_block(x, folded, residual_mode=mode)
         assert fused_stgcan_block.launches == before
+
+
+# ------------------------------------------- the whole-backbone kernel
+
+SHORT = ((64, 1, False), (128, 2, True))
+NARROW_RES = ((16, 1, True), (16, 1, True), (32, 2, True))   # block 0 projects its residual
+
+
+def _scaled(module, seed):
+    """Seeded weights at He's variance with non-trivial BN statistics, so
+    that logits stay O(1) through seven blocks."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for param in module.parameters():
+            if param.dim() >= 2:
+                param.mul_(6 ** 0.5)
+        for name, buf in module.named_buffers():
+            if name.endswith("running_mean"):
+                buf.copy_(0.1 * torch.randn(buf.shape, generator=gen))
+            elif name.endswith("running_var"):
+                buf.copy_(1 + 0.3 * torch.rand(buf.shape, generator=gen))
+    return module.eval()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [128, 1, 37])
+@pytest.mark.parametrize("classes,stages,cin", [(2, None, 3), (11, None, 3), (3, SHORT, 3),
+                                                (5, NARROW_RES, 8)],
+                         ids=["urfall", "harup", "short_plan", "block0_residual"])
+def test_backbone_kernel_matches_reference(cuda_device, no_tf32, n, classes, stages,  # noqa: F811
+                                           cin):
+    torch.manual_seed(classes)
+    kw = {} if stages is None else {"stages": stages}
+    backbone = _scaled(STGCANBackbone(cin, num_classes=classes, **kw), n).to(cuda_device)
+    folded = fold_backbone(backbone)
+    x = torch.randn((n, 30, 14, cin), generator=torch.Generator().manual_seed(n))
+    x = x.to(cuda_device)
+    k2, k1 = fused_backbone_forward.launches, fused_stgcan_block.launches
+    out = fused_backbone_forward(x, folded)
+    torch.cuda.synchronize()
+    assert fused_backbone_forward.launches == k2 + 1       # one launch per forward
+    assert fused_stgcan_block.launches == k1
+    assert out.shape == (n, classes) and bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out, fused_backbone_reference(x, folded), rtol=0, atol=TOL)
+    with torch.no_grad():
+        torch.testing.assert_close(out, backbone(x), rtol=0, atol=TOL)
+
+
+@pytest.mark.cuda
+def test_backbone_kernel_refuses_what_it_does_not_take(cuda_device):  # noqa: F811
+    backbone = _scaled(STGCANBackbone(3, num_classes=2, stages=SHORT), 0).to(cuda_device)
+    folded = fold_backbone(backbone)
+    x = torch.zeros((2, 30, 14, 3), device=cuda_device)
+    broken = [
+        (folded._replace(cls_w=folded.cls_w[:, :1].contiguous()), "cls_w has shape"),
+        (folded._replace(data_bn_scale=folded.data_bn_scale.cpu()), "on cuda"),
+        (folded._replace(blocks=(folded.blocks[0], folded.blocks[1]._replace(
+            tconv_w=folded.blocks[1].tconv_w[:, :64].contiguous()))), r"blocks\[1\].tconv_w"),
+        (folded._replace(blocks=(folded.blocks[0]._replace(
+            gcn_b=folded.blocks[0].gcn_b.double()), folded.blocks[1])), r"blocks\[0\].gcn_b"),
+    ]
+    for bad, error in broken:
+        before = fused_backbone_forward.launches
+        with pytest.raises(ValueError, match=error):
+            fused_backbone_forward(x, bad)
+        assert fused_backbone_forward.launches == before
+    assert fused_backbone_forward(x[:0], folded).shape == (0, 2)
