@@ -10,7 +10,12 @@ and 11 classes) and on a short stage plan. Serves the reference checkpoint
 and a seeded random flagship (``gstcan_urfall_3stream``, full widths, batch
 128) through ``Predictor`` and the HTTP server, then a seeded ``stgcan``
 (``default_urfall``; one whole-backbone launch per forward) and a
-``two_stgcan`` the same way, and prints timings. Any failed check raises.
+``two_stgcan`` the same way, and prints timings. The flagship is served once
+under PyTorch's default TF32 switches before they are set for the plain
+versions: served results are full float32 whatever the switches say. Each
+kernel's time stands beside its bound on the pipe it uses (split TF32 on the
+tensor cores), the older fp32-FMA bound, and the time of ``torch.matmul`` on
+the tap GEMM alone (a yardstick the port never calls). Any failed check raises.
 The second-to-last line is a JSON object describing each kernel; the last
 line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -41,6 +46,8 @@ from fall_multimodal_tpu_torch.ops.fused_backbone_v2 import (
 )
 from fall_multimodal_tpu_torch.ops.stgcan_block import (
     fused_stgcan_block,
+    kernel_smem_bytes,
+    stgcan_block_emulated,
     stgcan_block_reference,
 )
 from fall_multimodal_tpu_torch.serve import (
@@ -54,13 +61,20 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "reference_gstcan3.npz")
 BATCH = 128
 SEED = 0
-KERNEL_TOL = 1e-4        # fp32 kernel vs fp32 plain version, other summation order
+KERNEL_TOL = 1e-4        # split-TF32 kernel vs fp32 plain version, other summation order
 MODEL_TOL = 1e-4
 SHORT_PLAN = ((64, 1, False), (128, 2, True))
 # H100 SXM published peaks (NVIDIA data sheet): fp32 outside the tensor
-# cores, HBM3 bandwidth. The kernel runs plain fp32 FMAs.
+# cores, dense TF32 in them, HBM3 bandwidth. The kernels' GEMMs run in split
+# TF32, three tensor-core products for one fp32 product; the adjacency
+# contraction, the SE gate and the epilogues run as fp32 FMAs.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
+TF32_PRODUCTS = 3
 PEAK_BYTES = 3.35e12
+# stgcan push p50 minus the batch-1 kernel time in the run before the
+# wrappers stopped checking every constant on every call (2.288 - 1.920 ms)
+HOST_SHARE_BEFORE_MS = 0.368
 
 
 def log(*args):
@@ -82,37 +96,67 @@ def cuda_ms(fn, iters=20, warmup=3) -> float:
 
 
 def block_cost(n, t, v, cin, folded, stride, mode):
-    """(flops, bytes) one block call must do/move: each input and weight
-    read once, the output written once."""
+    """(GEMM flops, other flops, bytes) one block call must do/move: the
+    three GEMMs (channel mix, taps, residual projection), the rest (adjacency
+    contraction over the nonzeros of this block's adjacency, SE MLP); each
+    input and weight read once, the output written once."""
     k, c = folded.A.shape[0], folded.bn1_scale.shape[0]
     h = c // 4
     t_out = (t - 1) // stride + 1
-    flops = 2 * n * (t * v * k * cin * c            # channel mix
-                     + t * k * v * v * cin          # adjacency contraction
-                     + t_out * v * 9 * c * c        # temporal taps
-                     + 2 * c * h)                   # SE MLP
+    gemm = 2 * n * (t * v * k * cin * c             # channel mix
+                    + t_out * v * 9 * c * c)        # temporal taps
     if mode == "proj":
-        flops += 2 * n * t_out * v * cin * c
+        gemm += 2 * n * t_out * v * cin * c
+    nnz = int((folded.A != 0).sum())
+    other = 2 * n * (t * nnz * cin                  # adjacency contraction (sparse)
+                     + 2 * c * h)                   # SE MLP
     weights = sum(x.numel() for x in folded if x is not None)
     nbytes = 4 * (n * t * v * cin + n * t_out * v * c + weights)
-    return flops, nbytes
+    return gemm, other, nbytes
+
+
+def bounds_ms(gemm, other, nbytes):
+    """(bound, bound_by, fp32-FMA bound) in ms: the least time for the
+    GEMMs as three TF32 tensor-core products each plus the rest as fp32 FMAs,
+    or for the bytes if that is larger; and what the same operations would
+    need on the fp32 FMA pipe alone (the bound of the earlier kernels)."""
+    ops_ms = (gemm * TF32_PRODUCTS / PEAK_TF32_FLOPS + other / PEAK_FP32_FLOPS) * 1e3
+    byte_ms = nbytes / PEAK_BYTES * 1e3
+    fma_ms = max((gemm + other) / PEAK_FP32_FLOPS * 1e3, byte_ms)
+    return max(ops_ms, byte_ms), "operations" if ops_ms >= byte_ms else "bytes", fma_ms
+
+
+def tap_gemm_library_ms(n, t_out, v, c):
+    """(fp32 ms, TF32 ms) of ``torch.matmul`` on a block's tap GEMM alone, as
+    one (n * t_out * v, 9c) x (9c, c) product on rows already gathered: how
+    far the hand-written GEMM is from cuBLAS on the same product."""
+    a = torch.randn((n * t_out * v, 9 * c), device="cuda")
+    b = torch.randn((9 * c, c), device="cuda")
+    out = []
+    saved = torch.backends.cuda.matmul.allow_tf32
+    for allow in (False, True):
+        torch.backends.cuda.matmul.allow_tf32 = allow
+        out.append(cuda_ms(lambda: torch.matmul(a, b)))
+    torch.backends.cuda.matmul.allow_tf32 = saved
+    return tuple(out)
 
 
 def backbone_cost(n, t, v, cin, folded):
-    """(flops, bytes) of one whole-backbone call: the blocks' operations by
+    """(GEMM flops, other flops, bytes) of one whole-backbone call: the blocks' operations by
     :func:`block_cost`'s count plus the pool and the head; x and every
     constant read once, the logits written once (activations between the
     blocks are not inputs or outputs of the function)."""
-    flops = 0
+    gemm = other = 0
     weights = folded.data_bn_scale.numel() * 2 + folded.cls_w.numel() + folded.cls_b.numel()
     tt, cc = t, cin
     for block, (stride, mode) in zip(folded.blocks, folded.stage_plan):
-        flops += block_cost(n, tt, v, cc, block, stride, mode)[0]
+        g, o, _ = block_cost(n, tt, v, cc, block, stride, mode)
+        gemm, other = gemm + g, other + o
         weights += sum(x.numel() for x in block if x is not None)
         tt, cc = (tt - 1) // stride + 1, block.bn1_scale.shape[0]
     classes = folded.cls_b.shape[0]
-    flops += n * (2 * t * v * cin + tt * v * cc + 2 * cc * classes)   # data BN, pool, head
-    return flops, 4 * (n * t * v * cin + n * classes + weights)
+    other += n * (2 * t * v * cin + tt * v * cc + 2 * cc * classes)   # data BN, pool, head
+    return gemm, other, 4 * (n * t * v * cin + n * classes + weights)
 
 
 def block_shapes(pred):
@@ -163,11 +207,9 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     log(card)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
-        f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
-        f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+    defaults = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}; defaults: "
+        f"matmul.allow_tf32={defaults[0]} cudnn.allow_tf32={defaults[1]}")
 
     # ---- phase 1: build every kernel from source ---------------------------
     t0 = time.perf_counter()
@@ -184,6 +226,26 @@ def main() -> int:
     pred = Predictor(cfg, sd_random, batch_size=BATCH, device=dev)
     calls = block_shapes(pred)
 
+    # ---- phase 1b: the main path under PyTorch's default TF32 switches ------
+    # cuDNN may use TF32 by default (the sensor head is Conv1d + LSTM); the
+    # Predictor switches it off for its own modules and restores the caller's.
+    d = cfg.data
+    skel = rng.normal(size=(BATCH, d.seq_len, d.num_joints, d.in_channels)).astype(np.float32)
+    sens = rng.normal(size=(BATCH, d.seq_len, d.sensor_dim)).astype(np.float32)
+    cpu_logits = Predictor(cfg, sd_random, batch_size=BATCH, device="cpu").predict_logits(
+        skel, sens)
+    torch.backends.cudnn.allow_tf32 = True
+    err_default = float(np.abs(pred.predict_logits(skel, sens) - cpu_logits).max())
+    after = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    log(f"main path under default flags (cudnn.allow_tf32=True): logits vs CPU "
+        f"max_abs_err={err_default:.3e}; flags after the call {after}")
+    if not err_default <= MODEL_TOL or after != (defaults[0], True):
+        raise AssertionError(f"served logits under default TF32 flags are off by "
+                             f"{err_default} or the caller's flags changed: {after}")
+    # the plain versions below are float32 references: TF32 off from here on
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
     # ---- phase 2: the kernel against its plain version, every shape --------
     distinct = {}
     for stream, i, t, folded, stride, mode in calls:
@@ -192,6 +254,7 @@ def main() -> int:
         distinct.setdefault(key, []).append((stream, i, folded))
     max_err = 0.0
     per_shape = {}
+    emulated = set()
     for key, users in distinct.items():
         cin, c, t, stride, mode = key
         folded = users[0][2]
@@ -209,6 +272,12 @@ def main() -> int:
             max_err = max(max_err, err)
             if n == BATCH:
                 per_shape[key] = x
+        if cin == c and c not in emulated:
+            # one shape per width: the kernel against the emulation of its arithmetic
+            emulated.add(c)
+            emu = (out - stgcan_block_emulated(x, folded, stride, mode)).abs().max().item()
+            log(f"      stgcan_block C={c}: vs the split-TF32 emulation max_abs_err={emu:.3e} "
+                f"(vs the fp32 plain version {err:.3e})")
 
     # ---- phase 2b: the whole-backbone kernel against its plain version ------
     # full width for default_urfall (2 classes) and default (11 classes), and
@@ -254,17 +323,12 @@ def main() -> int:
         raise AssertionError(f"reference checkpoint output off by {err_fx}")
 
     # ---- phase 4: the main path, seeded weights, batch 128 -----------------
-    d = cfg.data
-    skel = rng.normal(size=(BATCH, d.seq_len, d.num_joints, d.in_channels)).astype(np.float32)
-    sens = rng.normal(size=(BATCH, d.seq_len, d.sensor_dim)).astype(np.float32)
     fused_stgcan_block.launches = fused_backbone_forward.launches = 0
     logits = pred.predict_logits(skel, sens)
     launches = fused_stgcan_block.launches
     log(f"main path: Predictor(batch {BATCH}) forward launched stgcan_block {launches} times")
     if launches != len(calls) or launches != 14 or fused_backbone_forward.launches:
         raise AssertionError(f"expected 14 stgcan_block launches per forward, saw {launches}")
-    cpu_logits = Predictor(cfg, sd_random, batch_size=BATCH, device="cpu").predict_logits(
-        skel, sens)
     err_cpu = float(np.abs(logits - cpu_logits).max())
     log(f"main path logits {logits.shape}, finite={np.isfinite(logits).all()}, "
         f"vs CPU max_abs_err={err_cpu:.3e} (|logits| max {np.abs(logits).max():.3f})")
@@ -341,7 +405,8 @@ def main() -> int:
         srv.close()
 
     # ---- phase 6: timings ----------------------------------------------------
-    kernel_ms = plain_ms = bound_ms = flop_ms = byte_ms = 0.0
+    kernel_ms = plain_ms = bound_ms = fma_bound_ms = lib_fp32_ms = lib_tf32_ms = 0.0
+    k1_by = set()
     uses = {}
     for stream, i, t, folded, stride, mode in calls:
         key = (folded.gcn_w.shape[0], folded.bn1_scale.shape[0], t, stride, mode)
@@ -351,20 +416,26 @@ def main() -> int:
         folded = distinct[key][0][2]
         k_ms = cuda_ms(lambda: fused_stgcan_block(x, folded, stride, mode))
         p_ms = cuda_ms(lambda: stgcan_block_reference(x, folded, stride, mode))
-        flops, nbytes = block_cost(BATCH, t, 14, cin, folded, stride, mode)
-        b_ms = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES) * 1e3
-        by = "operations" if flops / PEAK_FP32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
+        gemm, other, nbytes = block_cost(BATCH, t, 14, cin, folded, stride, mode)
+        b_ms, by, fma_ms = bounds_ms(gemm, other, nbytes)
+        lib32, libtf = tap_gemm_library_ms(BATCH, (t - 1) // stride + 1, 14, c)
         log(f"time stgcan_block Cin={cin} C={c} T={t} stride={stride} {mode:8s} N={BATCH} "
             f"x{uses[key]}/forward: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-            f"bound {b_ms:.4f} ms ({by}; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), "
-            f"{flops / k_ms / 1e9:.1f} TFLOP/s")
+            f"bound {b_ms:.4f} ms ({by}, 3xTF32 tensor cores; fp32-FMA bound {fma_ms:.4f} ms; "
+            f"{(gemm + other) / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), "
+            f"{(gemm + other) / k_ms / 1e9:.1f} TFLOP/s, "
+            f"{kernel_smem_bytes(t, 14, 3, c, stride) / 1024:.1f} KB shared memory a CTA; "
+            f"gemm_library_ms (torch.matmul, taps only) fp32 {lib32:.4f}, TF32 {libtf:.4f}")
         kernel_ms += uses[key] * k_ms
         plain_ms += uses[key] * p_ms
         bound_ms += uses[key] * b_ms
-        flop_ms += uses[key] * flops / PEAK_FP32_FLOPS * 1e3
-        byte_ms += uses[key] * nbytes / PEAK_BYTES * 1e3
+        fma_bound_ms += uses[key] * fma_ms
+        lib_fp32_ms += uses[key] * lib32
+        lib_tf32_ms += uses[key] * libtf
+        k1_by.add(by)
     log(f"stgcan_block per forward (14 launches, batch {BATCH}): kernel {kernel_ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms")
+        f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms (fp32-FMA bound "
+        f"{fma_bound_ms:.4f} ms), gemm_library_ms fp32 {lib_fp32_ms:.4f}, TF32 {lib_tf32_ms:.4f}")
 
     skel_d = torch.from_numpy(skel).to(dev)
     sens_d = torch.from_numpy(sens).to(dev)
@@ -391,17 +462,25 @@ def main() -> int:
     bb_ms = cuda_ms(lambda: fused_backbone_forward(x_s, folded_s))
     bb_plain_ms = cuda_ms(lambda: fused_backbone_reference(x_s, folded_s))
     k1x7_ms = cuda_ms(lambda: blockwise(x_s))
-    bb_flops, bb_bytes = backbone_cost(BATCH, ds.seq_len, ds.num_joints, ds.in_channels, folded_s)
-    bb_flop_ms, bb_byte_ms = bb_flops / PEAK_FP32_FLOPS * 1e3, bb_bytes / PEAK_BYTES * 1e3
-    bb_bound_ms = max(bb_flop_ms, bb_byte_ms)
-    bb_by = "operations" if bb_flop_ms >= bb_byte_ms else "bytes"
+    bb_gemm, bb_other, bb_bytes = backbone_cost(BATCH, ds.seq_len, ds.num_joints,
+                                                ds.in_channels, folded_s)
+    bb_flops = bb_gemm + bb_other
+    bb_bound_ms, bb_by, bb_fma_ms = bounds_ms(bb_gemm, bb_other, bb_bytes)
+    bb_lib32 = bb_libtf = 0.0
+    tt = ds.seq_len
+    for block, (stride, _) in zip(folded_s.blocks, folded_s.stage_plan):
+        tt = (tt - 1) // stride + 1
+        lib32, libtf = tap_gemm_library_ms(BATCH, tt, ds.num_joints, block.bn1_scale.shape[0])
+        bb_lib32, bb_libtf = bb_lib32 + lib32, bb_libtf + libtf
     log(f"time fused_backbone default_urfall N={BATCH}: kernel {bb_ms:.4f} ms (1 launch), "
         f"plain {bb_plain_ms:.4f} ms, the same backbone in 7 stgcan_block launches "
-        f"{k1x7_ms:.4f} ms, bound {bb_bound_ms:.4f} ms ({bb_by}; {bb_flops / 1e9:.3f} GFLOP, "
-        f"{bb_bytes / 1e6:.2f} MB), {bb_flops / bb_ms / 1e9:.1f} TFLOP/s")
+        f"{k1x7_ms:.4f} ms, bound {bb_bound_ms:.4f} ms ({bb_by}, 3xTF32 tensor cores; "
+        f"fp32-FMA bound {bb_fma_ms:.4f} ms; {bb_flops / 1e9:.3f} GFLOP, "
+        f"{bb_bytes / 1e6:.2f} MB), {bb_flops / bb_ms / 1e9:.1f} TFLOP/s; gemm_library_ms "
+        f"(torch.matmul, the 7 tap GEMMs only) fp32 {bb_lib32:.4f}, TF32 {bb_libtf:.4f}")
     x_1 = x_s[:1].contiguous()
-    log(f"time fused_backbone default_urfall N=1: kernel "
-        f"{cuda_ms(lambda: fused_backbone_forward(x_1, folded_s)):.4f} ms, 7 stgcan_block "
+    bb1_ms = cuda_ms(lambda: fused_backbone_forward(x_1, folded_s))
+    log(f"time fused_backbone default_urfall N=1: kernel {bb1_ms:.4f} ms, 7 stgcan_block "
         f"launches {cuda_ms(lambda: blockwise(x_1)):.4f} ms")
     for _ in range(3):
         pred_s.predict_logits(skel)
@@ -414,7 +493,9 @@ def main() -> int:
     lat_s = measure_push_latency(StreamingClassifier(pred_s, seq_len=ds.seq_len), n_pushes=50,
                                  warmup=5)
     log(f"stgcan streaming push latency (batch 1, {lat_s['n']} pushes): "
-        f"p50 {lat_s['p50_ms']:.3f} ms, p99 {lat_s['p99_ms']:.3f} ms")
+        f"p50 {lat_s['p50_ms']:.3f} ms, p99 {lat_s['p99_ms']:.3f} ms; host share of a push "
+        f"(p50 - batch-1 kernel): {lat_s['p50_ms'] - bb1_ms:.3f} ms, before the constants "
+        f"were packed once: {HOST_SHARE_BEFORE_MS:.3f} ms")
 
     log(json.dumps({"kernels": [{
         "name": "stgcan_block",
@@ -426,7 +507,10 @@ def main() -> int:
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
-        "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
+        "bound_by": "operations" if k1_by == {"operations"} else "bytes",
+        "bound_pipe": "3xTF32 tensor cores",
+        "fma_bound_ms": fma_bound_ms,
+        "gemm_library_ms": {"fp32": lib_fp32_ms, "tf32": lib_tf32_ms},
         "library_ms": None,
     }, {
         "name": "fused_backbone",
@@ -439,6 +523,9 @@ def main() -> int:
         "plain_ms": bb_plain_ms,
         "bound_ms": bb_bound_ms,
         "bound_by": bb_by,
+        "bound_pipe": "3xTF32 tensor cores",
+        "fma_bound_ms": bb_fma_ms,
+        "gemm_library_ms": {"fp32": bb_lib32, "tf32": bb_libtf},
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-// A whole eval-mode STGCAN backbone in one launch, for Hopper (sm_90a). fp32.
+// A whole eval-mode STGCAN backbone in one launch, for Hopper (sm_90a). fp32
+// in and out; the GEMMs run on tensor cores in split TF32 (stgcan_phases.cuh).
 //
 // Replaces the TPU kernel fall_multimodal_tpu/ops/pallas/fused_backbone_v2.py
 // `_backbone_kernel` (pallas_call at :341). Per sample:
@@ -23,11 +24,16 @@
 // reads them. The pool and the head are done by the cluster's first CTA.
 //
 // What bounds it: operations. The full plan (64,64,64,128,128,256,256 on
-// T=30, V=14) is about 0.65 GFLOP per sample in fp32 FMAs against 8.4 MB of
-// weights shared by all samples. What this design leaves on the table is what
-// the per-block kernel leaves (no tensor cores, no async tile pipeline), and a
-// cluster never spreads over more than kCluster SMs, so at batch 1 the whole
-// backbone runs on 4 of the 132 SMs.
+// T=30, V=14) is about 0.65 GFLOP per sample, 95% of it GEMMs that cost three
+// tensor-core products each in split TF32 (floor at batch 128: about 0.5 ms),
+// against 8.4 MB of weights (17 MB as TF32 halves) shared by all samples. What
+// the design does about it is the per-block design of stgcan_phases.cuh: the
+// cluster cut into row x column parts by the block's width, the weights in a
+// cp.async ring, the graph-conv tile staged once with its halo. What it leaves
+// on the table is what the per-block kernel leaves (no producer warp, the
+// adjacency contraction on the FMA pipe, no TMA multicast), and a cluster
+// never spreads over more than kCluster SMs, so at batch 1 the whole backbone
+// runs on 4 of the 132 SMs.
 
 #include "stgcan_phases.cuh"
 
@@ -36,8 +42,6 @@ namespace {
 using namespace stgcan;
 
 constexpr int kMaxBlocks = 16;
-constexpr int kPtrsPerBlock = 16;  // the pointers of BlockConsts, in order
-constexpr int kIntsPerBlock = 3;   // C, stride, residual mode
 
 struct BackboneArgs {
   const float* x;      // (N, T, V, Cin)
@@ -54,23 +58,25 @@ struct BackboneArgs {
 };
 
 // Two CTAs per SM (at most 128 registers a thread): at batch 128 the 512 CTAs
-// need the occupancy, and the block's constants, copied out of parameter
-// space once per block, then cost a few spilled registers and nothing else.
+// need the occupancy (one CTA's staging overlaps the other's products); the
+// block's constants are read from parameter space where they are used, since
+// a copy held in registers spills (measured: 9% slower at batch 128).
 __global__ void __launch_bounds__(kThreads, 2)
 fused_backbone_kernel(const __grid_constant__ BackboneArgs p) {
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const size_t n = blockIdx.x / kCluster;
-  float* const act0 = p.act0 + n * p.act_stride;
-  float* const act1 = p.act1 + n * p.act_stride;
-  float* const gn = p.g + n * p.g_stride;
 
-  const float* xn = p.x + n * p.T * p.V * p.Cin;
+  // Few values live across a block: every pointer is rebuilt from parameter
+  // space where it is needed (registers are what this kernel is short of).
   int T = p.T, Cin = p.Cin;
   for (int i = 0; i < p.n_blocks; ++i) {
-    const BlockConsts blk = p.blocks[i];
-    float* const on = (i & 1) ? act1 : act0;
+    const BlockConsts& blk = p.blocks[i];  // read where used: no registers held
+    const float* xn = i == 0 ? p.x + n * p.T * p.V * p.Cin
+                             : ((i & 1) ? p.act0 : p.act1) + n * p.act_stride;
+    float* const on = ((i & 1) ? p.act1 : p.act0) + n * p.act_stride;
+    float* const gn = p.g + n * p.g_stride;
     if (i == 0)
       stgcan_block_phases<true>(blk, T, p.V, Cin, p.K, xn, p.in_s, p.in_t, gn, on, cluster,
                                 rank, smem);
@@ -81,10 +87,10 @@ fused_backbone_kernel(const __grid_constant__ BackboneArgs p) {
     // stages it, and no CTA rewrites its shared memory while a peer is still
     // inside this block.
     cluster.sync();
-    xn = on;
     T = (T - 1) / blk.stride + 1;
     Cin = blk.C;
   }
+  const float* xn = ((p.n_blocks & 1) ? p.act0 : p.act1) + n * p.act_stride;
 
   // ---- pool over (T, V) and the classifier head, by the first CTA ------------
   if (rank != 0) return;
@@ -109,12 +115,14 @@ extern "C" {
 
 // Launches the kernel on `stream` and returns cudaGetLastError() (0 = queued),
 // or cudaErrorInvalidValue for a plan it does not take.
-// block_ptrs: n_blocks * 16 device pointers, per block in BlockConsts order
-// (A, gcn_w, gcn_b, bn1_s, bn1_t, tconv_w, tconv_b, bn2_s, bn2_t, se_w1, se_b1,
-// se_w2, se_b2, res_w, res_s, res_t; the last three null unless the block
-// projects its residual). block_ints: n_blocks * 3 ints (C, stride, residual
-// mode: 0 none, 1 identity, 2 proj). act0/act1 hold act_stride floats per
-// sample (the largest block output), g holds g_stride (the largest T*V*C);
+// block_ptrs: n_blocks * 14 device pointers, per block in BlockConsts order
+// (nbr, gcn_w, g_shift, bn1_s, tconv_w, bn2_s, y_shift, se_w1, se_b1, se_w2,
+// se_b2, res_w, res_s, res_t; the last three null unless the block projects
+// its residual; the adjacency packed as its nonzeros, the three weights as
+// TF32 halves). block_ints: n_blocks * 4 ints (C, stride, residual mode: 0
+// none, 1 identity, 2 proj; nonzeros of the adjacency). act0/act1 hold
+// act_stride floats per sample (the largest block output), g holds g_stride
+// (the largest T*V*C);
 // both strides are multiples of 4. Pointers must be 16-byte aligned; every C a
 // multiple of 4, at most 256; K <= 4.
 int fused_backbone_forward(const float* x, const float* in_s, const float* in_t,
@@ -127,16 +135,14 @@ int fused_backbone_forward(const float* x, const float* in_s, const float* in_t,
   BackboneArgs p{x, in_s, in_t, cls_w, cls_b, act0, act1, g, logits,
                  n_blocks, T, V, Cin, K, classes, act_stride, g_stride, {}};
   size_t smem_floats = 0;
+  int tt = T;
   for (int i = 0; i < n_blocks; ++i) {
-    const float* const* ptrs =
-        reinterpret_cast<const float* const*>(block_ptrs) + i * kPtrsPerBlock;
     const int* ints = block_ints + i * kIntsPerBlock;
-    p.blocks[i] = BlockConsts{ptrs[0],  ptrs[1],  ptrs[2],  ptrs[3],  ptrs[4],  ptrs[5],
-                              ptrs[6],  ptrs[7],  ptrs[8],  ptrs[9],  ptrs[10], ptrs[11],
-                              ptrs[12], ptrs[13], ptrs[14], ptrs[15], ints[0],  ints[1],
-                              ints[2]};
-    const size_t need = block_smem_floats(V, K, ints[0]);
+    p.blocks[i] = block_consts(
+        reinterpret_cast<const float* const*>(block_ptrs) + i * kPtrsPerBlock, ints);
+    const size_t need = block_smem_floats(tt, V, K, ints[0], ints[1]);
     if (need > smem_floats) smem_floats = need;
+    tt = (tt - 1) / ints[1] + 1;
   }
   return launch_clusters(fused_backbone_kernel, p, N, sizeof(float) * smem_floats, stream);
 }

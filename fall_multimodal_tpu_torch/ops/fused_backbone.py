@@ -5,7 +5,8 @@ the data BN and every block of a port ``models.stgcan.STGCANBackbone`` once,
 then runs data-BN affine -> each block through :func:`fused_stgcan_block`
 -> mean over (T, V) -> optional ``cls`` head. Every block goes through the
 block wrapper whatever its width, and there is no fallback: a tensor on the
-card runs the CUDA kernel or raises.
+card runs the CUDA kernel or raises. For a backbone on the card the
+kernel's side of every block's constants is checked and packed here, once.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from fall_multimodal_tpu_torch.ops.stgcan_block import (
     fold_block_params,
     fold_bn_module,
     fused_stgcan_block,
+    packed_block,
 )
 
 
@@ -29,6 +31,8 @@ class FusedBackbone:
         self.blocks = []
         for i, block in enumerate(backbone.st_gcn_networks):
             folded, mode = fold_block_params(block, backbone.A * backbone.edge_importance[i])
+            if folded.A.device.type == "cuda":
+                packed_block(folded, mode, folded.A.device)
             self.blocks.append((folded, block.stride, mode))
         cls = backbone.cls
         self.cls = None if cls is None else (cls.weight[:, :, 0, 0].t().contiguous(),

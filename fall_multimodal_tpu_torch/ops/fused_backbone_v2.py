@@ -10,13 +10,17 @@ folded constants here are the per-block ones of
 :func:`~fall_multimodal_tpu_torch.ops.stgcan_block.fold_block_params`.
 :func:`fused_backbone_forward` runs the plain version
 :func:`fused_backbone_reference` for a tensor on the CPU and the CUDA kernel
-for a tensor on the card; it has no other path.
+for a tensor on the card; it has no other path. The kernel multiplies in
+split TF32 (``ops/stgcan_block.py``); what it reads is built and checked once
+per :class:`FoldedBackbone` by :func:`pack_backbone`, and a call checks ``x``
+only. :func:`fused_backbone_emulated` repeats the kernel's arithmetic in
+plain PyTorch, for tests.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Tuple
+from typing import Callable, NamedTuple, Tuple
 
 import torch
 
@@ -24,10 +28,14 @@ from fall_multimodal_tpu_torch.ops import build
 from fall_multimodal_tpu_torch.ops.stgcan_block import (
     RESIDUAL_MODES,
     FoldedBlockParams,
-    block_constant_shapes,
+    PackCache,
+    PackedBlock,
     check_constant,
     fold_block_params,
     fold_bn_module,
+    pack_block,
+    split_matmul,
+    stgcan_block_emulated,
     stgcan_block_reference,
 )
 
@@ -61,11 +69,14 @@ def fold_backbone(backbone) -> FoldedBackbone:
         folded, mode = fold_block_params(block, backbone.A * backbone.edge_importance[i])
         blocks.append(folded)
         plan.append((block.stride, mode))
-    return FoldedBackbone(
+    folded = FoldedBackbone(
         data_bn_scale=scale.contiguous(), data_bn_shift=shift.contiguous(),
         blocks=tuple(blocks), stage_plan=tuple(plan),
         cls_w=backbone.cls.weight[:, :, 0, 0].t().contiguous(),
         cls_b=backbone.cls.bias.contiguous())
+    if scale.device.type == "cuda":
+        packed_backbone(folded, scale.device)    # checked and packed once, here
+    return folded
 
 
 def fused_backbone_reference(x: torch.Tensor, folded: FoldedBackbone) -> torch.Tensor:
@@ -76,6 +87,101 @@ def fused_backbone_reference(x: torch.Tensor, folded: FoldedBackbone) -> torch.T
     for block, (stride, mode) in zip(folded.blocks, folded.stage_plan):
         y = stgcan_block_reference(y, block, stride, mode)
     return y.mean(dim=(1, 2)) @ folded.cls_w + folded.cls_b
+
+
+def fused_backbone_emulated(x: torch.Tensor, folded: FoldedBackbone,
+                            matmul: Callable = split_matmul) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch, for tests: every block
+    through :func:`~fall_multimodal_tpu_torch.ops.stgcan_block.
+    stgcan_block_emulated` with ``matmul`` for its GEMMs."""
+    n, t, v, c = x.shape
+    y = (x.reshape(n, t, v * c) * folded.data_bn_scale
+         + folded.data_bn_shift).reshape(n, t, v, c)
+    for block, (stride, mode) in zip(folded.blocks, folded.stage_plan):
+        y = stgcan_block_emulated(y, block, stride, mode, matmul)
+    return y.mean(dim=(1, 2)) @ folded.cls_w + folded.cls_b
+
+
+def check_plan(folded: FoldedBackbone) -> None:
+    """Raise ``ValueError`` unless the stage plan fits the blocks."""
+    if not folded.blocks or len(folded.blocks) != len(folded.stage_plan):
+        raise ValueError(f"folded backbone has {len(folded.blocks)} blocks for a stage "
+                         f"plan of {len(folded.stage_plan)}")
+    cc = folded.blocks[0].gcn_w.shape[0]
+    for i, (block, (stride, mode)) in enumerate(zip(folded.blocks, folded.stage_plan)):
+        c = block.bn1_scale.shape[0]
+        if mode not in RESIDUAL_MODES or stride not in (1, 2):
+            raise ValueError(f"block {i}: stride must be 1 or 2 and the residual mode one "
+                             f"of {sorted(RESIDUAL_MODES)}, got {stride}, {mode!r}")
+        if mode == "identity" and (cc != c or stride != 1):
+            raise ValueError(f"block {i}: identity residual needs Cin == C and stride 1, "
+                             f"got Cin={cc}, C={c}, stride={stride}")
+        cc = c
+
+
+class PackedBackbone(NamedTuple):
+    """What the kernel reads of a whole backbone, built once by
+    :func:`pack_backbone`; keeps every tensor behind its pointers alive."""
+
+    folded: FoldedBackbone
+    blocks: Tuple[PackedBlock, ...]
+    ptrs: ctypes.Array           # n_blocks * 14 device pointers
+    ints: ctypes.Array           # n_blocks * (C, stride, residual mode, adjacency nonzeros)
+    v: int
+    cin: int
+    k: int
+    classes: int
+
+    def scratch_floats(self, t: int) -> Tuple[int, int]:
+        """Per-sample floats of an activation buffer and of the graph-conv
+        scratch for ``t`` input frames, each a multiple of 4."""
+        act = g = 0
+        for block, (stride, _) in zip(self.blocks, self.folded.stage_plan):
+            g = max(g, t * self.v * block.c)
+            t = (t - 1) // stride + 1
+            act = max(act, t * self.v * block.c)
+        return (act + 3) & ~3, (g + 3) & ~3
+
+
+@torch.no_grad()
+def pack_backbone(folded: FoldedBackbone, device) -> PackedBackbone:
+    """Check the plan and every constant of ``folded`` against what the
+    kernel reads on ``device`` and build the kernel's side of them. Raises
+    ``ValueError`` for what the kernel does not take."""
+    check_plan(folded)
+    device = torch.device(device)
+    k, v = folded.blocks[0].A.shape[:2]
+    cin = folded.blocks[0].gcn_w.shape[0]
+    if len(folded.blocks) > MAX_BLOCKS or k > 4:
+        raise ValueError(f"the CUDA kernel takes at most {MAX_BLOCKS} blocks and 4 graph "
+                         f"partitions; got {len(folded.blocks)} blocks, K={k}")
+    blocks, ptrs, ints = [], [], []
+    cc = cin
+    for i, (block, (stride, mode)) in enumerate(zip(folded.blocks, folded.stage_plan)):
+        if block.gcn_w.shape[0] != cc or block.A.shape[:2] != (k, v):
+            raise ValueError(f"blocks[{i}] takes Cin={block.gcn_w.shape[0]} and an adjacency "
+                             f"{tuple(block.A.shape)}, the plan hands it Cin={cc}, {(k, v, v)}")
+        packed = pack_block(block, mode, device, name=f"blocks[{i}]")
+        blocks.append(packed)
+        ptrs += packed.ptrs
+        ints += [packed.c, stride, RESIDUAL_MODES[mode], packed.nnz]
+        cc = packed.c
+    classes = folded.cls_b.shape[0]
+    head = dict(data_bn_scale=(v * cin,), data_bn_shift=(v * cin,), cls_w=(cc, classes),
+                cls_b=(classes,))
+    for name, shape in head.items():
+        check_constant(name, getattr(folded, name), shape, device)
+    return PackedBackbone(folded, tuple(blocks), (ctypes.c_void_p * len(ptrs))(*ptrs),
+                          (ctypes.c_int * len(ints))(*ints), v, cin, k, classes)
+
+
+_packed_backbones = PackCache(capacity=64)
+
+
+def packed_backbone(folded: FoldedBackbone, device) -> PackedBackbone:
+    """:func:`pack_backbone`, once per ``folded``."""
+    device = torch.device(device)
+    return _packed_backbones.get(folded, str(device), lambda: pack_backbone(folded, device))
 
 
 _bound_lib = None
@@ -102,65 +208,29 @@ def fused_backbone_forward(x: torch.Tensor, folded: FoldedBackbone) -> torch.Ten
 
     A CPU tensor goes through :func:`fused_backbone_reference`; a CUDA tensor
     through the CUDA kernel, one launch whatever the stage plan and N, built
-    at first use. Every launch adds one to ``fused_backbone_forward.launches``.
+    at first use, on the constants :func:`packed_backbone` made (and checked)
+    the first time it saw ``folded``. Every launch adds one to
+    ``fused_backbone_forward.launches``.
     """
     if x.dim() != 4 or x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError(
             "x must be a contiguous float32 (N, T, V, Cin) tensor, got "
             f"{x.dtype} {tuple(x.shape)} (contiguous={x.is_contiguous()})")
     n, t, v, cin = x.shape
-    if not folded.blocks or len(folded.blocks) != len(folded.stage_plan):
-        raise ValueError(f"folded backbone has {len(folded.blocks)} blocks for a stage "
-                         f"plan of {len(folded.stage_plan)}")
-    k = folded.blocks[0].A.shape[0]
-    # follow (T, C) through the plan; every constant's shape hangs on them
-    checks, ints = [], []
-    act_floats = g_floats = 0
-    tt, cc = t, cin
-    for i, (block, (stride, mode)) in enumerate(zip(folded.blocks, folded.stage_plan)):
-        c = block.bn1_scale.shape[0]
-        if mode not in RESIDUAL_MODES or stride not in (1, 2):
-            raise ValueError(f"block {i}: stride must be 1 or 2 and the residual mode one "
-                             f"of {sorted(RESIDUAL_MODES)}, got {stride}, {mode!r}")
-        if mode == "identity" and (cc != c or stride != 1):
-            raise ValueError(f"block {i}: identity residual needs Cin == C and stride 1, "
-                             f"got Cin={cc}, C={c}, stride={stride}")
-        checks.append((i, block, block_constant_shapes(v, cc, k, c, mode)))
-        ints += [c, stride, RESIDUAL_MODES[mode]]
-        g_floats = max(g_floats, tt * v * c)
-        tt = (tt - 1) // stride + 1
-        act_floats = max(act_floats, tt * v * c)
-        cc = c
-    classes = folded.cls_b.shape[0]
-    head = dict(data_bn_scale=(v * cin,), data_bn_shift=(v * cin,), cls_w=(cc, classes),
-                cls_b=(classes,))
     if x.device.type == "cpu":
+        check_plan(folded)
         return fused_backbone_reference(x, folded)
     if x.device.type != "cuda" or x.data_ptr() % 16:
         raise ValueError(f"fused_backbone_forward runs on cpu or cuda (16-byte aligned x), "
                          f"got {x.device}")
-    if len(folded.blocks) > MAX_BLOCKS or k > 4:
-        raise ValueError(f"the CUDA kernel takes at most {MAX_BLOCKS} blocks and 4 graph "
-                         f"partitions; got {len(folded.blocks)} blocks, K={k}")
-    ptrs = []
-    for i, block, shapes in checks:
-        c = block.bn1_scale.shape[0]
-        if not (4 <= c <= 256 and c % 4 == 0):
-            raise ValueError(f"block {i}: the CUDA kernel takes C <= 256, a multiple of 4; "
-                             f"got C={c}")
-        for name in FoldedBlockParams._fields:
-            if name in shapes:
-                tensor = getattr(block, name)
-                check_constant(f"blocks[{i}].{name}", tensor, shapes[name], x.device)
-                ptrs.append(tensor.data_ptr())
-            else:
-                ptrs.append(None)
-    for name, shape in head.items():
-        check_constant(name, getattr(folded, name), shape, x.device)
-    logits = torch.empty((n, classes), device=x.device, dtype=torch.float32)
+    packed = packed_backbone(folded, x.device)
+    if (v, cin) != (packed.v, packed.cin):
+        raise ValueError(f"x has (V, Cin) = {(v, cin)}, the folded backbone takes "
+                         f"{(packed.v, packed.cin)}")
+    logits = torch.empty((n, packed.classes), device=x.device, dtype=torch.float32)
     if n == 0:
         return logits
-    act_stride, g_stride = (act_floats + 3) & ~3, (g_floats + 3) & ~3
+    act_stride, g_stride = packed.scratch_floats(t)
     act = torch.empty((2, n, act_stride), device=x.device, dtype=torch.float32)
     scratch = torch.empty((n, g_stride), device=x.device, dtype=torch.float32)
 
@@ -169,10 +239,10 @@ def fused_backbone_forward(x: torch.Tensor, folded: FoldedBackbone) -> torch.Ten
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.fused_backbone_forward(
             x.data_ptr(), folded.data_bn_scale.data_ptr(), folded.data_bn_shift.data_ptr(),
-            (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * len(ints))(*ints),
-            folded.cls_w.data_ptr(), folded.cls_b.data_ptr(),
+            packed.ptrs, packed.ints, folded.cls_w.data_ptr(), folded.cls_b.data_ptr(),
             act[0].data_ptr(), act[1].data_ptr(), scratch.data_ptr(), logits.data_ptr(),
-            n, t, v, cin, k, len(folded.blocks), classes, act_stride, g_stride, stream)
+            n, t, v, cin, packed.k, len(packed.blocks), packed.classes, act_stride, g_stride,
+            stream)
     if rc != 0:
         raise RuntimeError("fused_backbone kernel launch failed: "
                            + lib.fused_backbone_error_string(rc).decode())

@@ -17,10 +17,18 @@ Counterpart of ``fall_multimodal_tpu/serve.py``:
 
 Everything runs on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; with no card and no explicit CPU request it raises.
+
+Served results are full float32 whatever the process-wide TF32 switches say
+(PyTorch lets cuDNN convolutions and LSTMs use TF32 by default, about three
+decimal digits): the kernels multiply in split TF32, which keeps float32
+accuracy, and :meth:`Predictor.forward` runs its plain modules (sensor head,
+fusion head, the sensor-only families) under :func:`full_float32`, which
+switches TF32 off for the call and puts the caller's settings back.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 from typing import Any, Dict, Mapping, Optional
 
@@ -53,6 +61,19 @@ def resolve_device(device) -> torch.device:
 def synchronize(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+@contextlib.contextmanager
+def full_float32():
+    """Float32 matmuls, convolutions and RNNs in full float32 inside the
+    block: cuDNN's and cuBLAS's TF32 switches off, and back to what the caller
+    had on the way out."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 class Predictor:
@@ -98,15 +119,17 @@ class Predictor:
         """Logits of one batch already on the device: the single-stream
         classifier as one whole-backbone kernel launch, the two- and
         three-stream models through one kernel launch per block of each
-        stream, the sensor-only models as plain modules."""
+        stream, the sensor-only models as plain modules. The plain modules
+        run in full float32 (:func:`full_float32`)."""
         if self.folded is not None:
             return fused_backbone_forward(skeleton, self.folded)
-        if self.pts_fb is None:
-            return self.model(skeleton, sensor)
-        feats = [self.pts_fb(skeleton), self.mot_fb(motion_stream(skeleton).contiguous())]
-        if isinstance(self.model, ThreeStreamGSTCAN):
-            feats.append(self.model.sensor(sensor))
-        return self.model.fcn(torch.cat(feats, dim=-1))
+        with full_float32():
+            if self.pts_fb is None:
+                return self.model(skeleton, sensor)
+            feats = [self.pts_fb(skeleton), self.mot_fb(motion_stream(skeleton).contiguous())]
+            if isinstance(self.model, ThreeStreamGSTCAN):
+                feats.append(self.model.sensor(sensor))
+            return self.model.fcn(torch.cat(feats, dim=-1))
 
     @torch.inference_mode()
     def predict_logits(self, skeleton: np.ndarray,

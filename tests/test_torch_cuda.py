@@ -5,15 +5,19 @@ they also run on a GPU machine without JAX, from the repository root:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 (``--noconftest``: the suite's ``conftest.py`` sets up JAX.) Tolerance
-1e-4: an fp32 kernel against its fp32 plain version, summed in another
-order; TF32 is off for the plain version's matmuls and convolutions. The
-whole-backbone kernel's logits are O(1) here, so 1e-4 is absolute on them.
+1e-4: a kernel that multiplies in split TF32 (float32 accuracy) against its
+fp32 plain version, summed in another order; TF32 is off for the plain
+version's matmuls and convolutions. The whole-backbone kernel's logits are
+O(1) here, so 1e-4 is absolute on them.
 """
 
+import numpy as np
 import pytest
 import torch
 
+from fall_multimodal_tpu_torch.configs import load_config, preset_path
 from fall_multimodal_tpu_torch.graphs import build_adjacency
+from fall_multimodal_tpu_torch.models import build_model
 from fall_multimodal_tpu_torch.models.stgcan import STGCANBackbone, STGCANBlock
 from fall_multimodal_tpu_torch.ops.fused_backbone import FusedBackbone
 from fall_multimodal_tpu_torch.ops.fused_backbone_v2 import (
@@ -26,6 +30,7 @@ from fall_multimodal_tpu_torch.ops.stgcan_block import (
     fused_stgcan_block,
     stgcan_block_reference,
 )
+from fall_multimodal_tpu_torch.serve import Predictor
 from torch_port_helpers import cuda_device  # noqa: F401  (fixture)
 
 TOL = 1e-4
@@ -63,6 +68,18 @@ CASES = [
     (37, 2, 64, 1, False, 29),
     (1, 128, 256, 2, True, 15),
     (3, 256, 256, 1, True, 8),
+    # what the tiling leaves ragged: rows not a multiple of 16 or of a pass,
+    # widths narrower than a column tile or not a multiple of 8, two passes
+    # of rows, a projection from Cin = 3, and one sample with every CTA of
+    # its cluster at work
+    (1, 16, 16, 1, True, 30),
+    (2, 36, 36, 1, True, 9),
+    (2, 8, 36, 2, True, 11),
+    (1, 3, 16, 2, True, 5),
+    (2, 64, 64, 1, True, 80),
+    (1, 100, 200, 1, True, 3),
+    (1, 64, 64, 1, True, 30),
+    (1, 128, 128, 1, True, 15),
 ]
 
 
@@ -84,6 +101,21 @@ def test_kernel_matches_reference(cuda_device, no_tf32, n, cin, cout, stride,  #
                                rtol=0, atol=TOL)
     with torch.no_grad():
         torch.testing.assert_close(out, block(x, A.to(cuda_device)), rtol=0, atol=TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v", [5, 17, 25])
+def test_kernel_takes_an_odd_joint_count(cuda_device, no_tf32, v):  # noqa: F811
+    """Joint pairs in the adjacency contraction need an even V; odd V takes
+    the one-joint path, and rows stop lining up with frames."""
+    block = _randomize(STGCANBlock(24, 40, 3, stride=2, residual=True), v).to(cuda_device)
+    gen = torch.Generator().manual_seed(v)
+    A = (torch.randn((3, v, v), generator=gen) / v ** 0.5).to(cuda_device)
+    folded, mode = fold_block_params(block, A)
+    x = torch.randn((3, 12, v, 24), generator=gen).to(cuda_device)
+    out = fused_stgcan_block(x, folded, stride=2, residual_mode=mode)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, stgcan_block_reference(x, folded, 2, mode), rtol=0, atol=TOL)
 
 
 @pytest.mark.cuda
@@ -180,3 +212,30 @@ def test_backbone_kernel_refuses_what_it_does_not_take(cuda_device):  # noqa: F8
             fused_backbone_forward(x, bad)
         assert fused_backbone_forward.launches == before
     assert fused_backbone_forward(x[:0], folded).shape == (0, 2)
+
+
+# ------------------------------------------------- full float32 when served
+
+@pytest.mark.cuda
+def test_predictor_is_full_float32_under_default_tf32_flags(cuda_device):  # noqa: F811
+    """No ``no_tf32`` fixture: cuDNN may use TF32 (PyTorch's default), the
+    flagship's sensor head is Conv1d + LSTM, and the served logits still
+    agree with the CPU Predictor; the caller's flags are left as they were."""
+    cfg = load_config(preset_path("gstcan_urfall_3stream"))
+    torch.manual_seed(0)
+    sd = _scaled(build_model(cfg), 0).state_dict()
+    d = cfg.data
+    rng = np.random.default_rng(0)
+    skel = rng.normal(size=(4, d.seq_len, d.num_joints, d.in_channels)).astype(np.float32)
+    sens = rng.normal(size=(4, d.seq_len, d.sensor_dim)).astype(np.float32)
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        got = Predictor(cfg, sd, batch_size=4, device=cuda_device).predict_logits(skel, sens)
+        assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    want = Predictor(cfg, sd, batch_size=4, device="cpu").predict_logits(skel, sens)
+    assert np.isfinite(got).all() and np.abs(want).max() > 0.1
+    np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
