@@ -15,7 +15,15 @@ under PyTorch's default TF32 switches before they are set for the plain
 versions: served results are full float32 whatever the switches say. Each
 kernel's time stands beside its bound on the pipe it uses (split TF32 on the
 tensor cores), the older fp32-FMA bound, and the time of ``torch.matmul`` on
-the tap GEMM alone (a yardstick the port never calls). Any failed check raises.
+the tap GEMM alone (a yardstick the port never calls). Phase 7 trains: three
+float32 steps of the full-width flagship on the card under the default TF32
+switches against the same steps on the CPU; ``run_fold`` on synthetic data
+for the flagship and for ``stgcan``, whose best checkpoints are then served
+through ``Predictor`` (14 block-kernel launches, respectively one
+whole-backbone launch) and held against the trainer's eval forward; and
+train windows/s at batch 32 and 1024 in float32 and bfloat16 (and with the
+dense graph conv off), printed as a ``{"train": [...]}`` line before the
+kernel line. Any failed check raises.
 The second-to-last line is a JSON object describing each kernel; the last
 line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -27,6 +35,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -36,7 +45,14 @@ import numpy as np
 import torch
 
 from fall_multimodal_tpu_torch.configs import load_config, preset_path
-from fall_multimodal_tpu_torch.interop import load_state_dict_file
+from fall_multimodal_tpu_torch.data import (
+    epoch_batch_indices,
+    gather_batch,
+    make_synthetic,
+    split_dataset,
+    to_device,
+)
+from fall_multimodal_tpu_torch.interop import load_into, load_state_dict_file
 from fall_multimodal_tpu_torch.models import build_model
 from fall_multimodal_tpu_torch.ops import build
 from fall_multimodal_tpu_torch.ops.fused_backbone import FusedBackbone
@@ -56,6 +72,15 @@ from fall_multimodal_tpu_torch.serve import (
     measure_push_latency,
 )
 from fall_multimodal_tpu_torch.server import PredictionServer
+from fall_multimodal_tpu_torch.train import (
+    build_optimizer,
+    create_train_state,
+    make_train_epoch,
+    make_train_step,
+)
+from fall_multimodal_tpu_torch.train.cv import run_fold
+from fall_multimodal_tpu_torch.utils.checkpoint import Checkpointer
+from fall_multimodal_tpu_torch.utils.device import full_float32
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "reference_gstcan3.npz")
@@ -72,6 +97,8 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 TF32_PRODUCTS = 3
 PEAK_BYTES = 3.35e12
+TRAIN_LOSS_RTOL = 1e-4   # card (split summation, cuDNN) vs CPU float32 train loss
+TRAIN_WINDOWS = 16_384   # device-resident windows behind the training timings
 # stgcan push p50 minus the batch-1 kernel time in the run before the
 # wrappers stopped checking every constant on every call (2.288 - 1.920 ms)
 HOST_SHARE_BEFORE_MS = 0.368
@@ -196,6 +223,207 @@ def http_json(url, body=None):
     req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
     with urllib.request.urlopen(req, timeout=300) as resp:
         return json.loads(resp.read())
+
+
+# ---- phase 7: training -------------------------------------------------------
+
+def seeded_train_state(cfg, sd, device):
+    """A train state on ``device`` holding the weights ``sd``."""
+    state = create_train_state(cfg, build_optimizer(cfg), seed=SEED, device=device)
+    load_into(state.model, sd)
+    return state
+
+
+def train_steps_card_vs_cpu(cfg, sd, dev, defaults):
+    """Phase 7a: three batch-32 float32 steps of the full-width flagship on
+    the card, under PyTorch's default TF32 switches, and on the CPU. Before
+    each step the card takes the CPU's state (weights, running statistics,
+    RMSprop's averages), so each step is compared from one state: its loss
+    within TRAIN_LOSS_RTOL, its gradients and batch statistics printed. The
+    same three steps run free on the card as well and are printed: RMSprop
+    amplifies float differences of tiny gradients into parameter steps of up
+    to lr, so free-running losses part after the first step. Fails on a
+    loss, a non-finite value, or if the caller's switches changed."""
+    import copy
+
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = defaults
+    d = cfg.data
+    data = make_synthetic(n_windows=96, num_classes=d.num_classes, sensor_dim=d.sensor_dim,
+                          seed=SEED)
+    rows = np.random.default_rng(SEED).permutation(96).reshape(3, 32)
+    step = make_train_step(softmax_before_ce=cfg.model.softmax_output)
+    cpu_dev = torch.device("cpu")
+    card, cpu, free = (seeded_train_state(cfg, sd, x) for x in (dev, cpu_dev, dev))
+    split_card, split_cpu = to_device(data, dev), to_device(data, cpu_dev)
+    out = {"loss_card": [], "loss_cpu": [], "loss_free_running": [], "loss_rel_err": [],
+           "grad_rel_l2_err": [], "grad_max_abs_err": [], "grad_abs_max": [],
+           "stats_max_abs_err": []}
+    for row in rows:
+        card.model.load_state_dict(cpu.model.state_dict())
+        card.optimizer.load_state_dict(copy.deepcopy(cpu.optimizer.state_dict()))
+        losses = []
+        for state, split in ((card, split_card), (cpu, split_cpu), (free, split_card)):
+            idx = torch.as_tensor(row, device=split.features.device)
+            _, m = step(state, gather_batch(split, idx))
+            losses.append(float(m["loss"]))
+        g_card = {k: p.grad.detach().cpu() for k, p in card.model.named_parameters()}
+        g_cpu = {k: p.grad for k, p in cpu.model.named_parameters()}
+        s_card = {k: v.cpu() for k, v in card.model.state_dict().items()
+                  if k.endswith(("running_mean", "running_var"))}
+        s_cpu = cpu.model.state_dict()
+        out["loss_card"].append(losses[0])
+        out["loss_cpu"].append(losses[1])
+        out["loss_free_running"].append(losses[2])
+        out["loss_rel_err"].append(abs(losses[0] - losses[1]) / abs(losses[1]))
+        out["grad_rel_l2_err"].append(
+            (sum(float(((g_card[k] - g_cpu[k]) ** 2).sum()) for k in g_cpu)
+             / sum(float((g ** 2).sum()) for g in g_cpu.values())) ** 0.5)
+        out["grad_max_abs_err"].append(max(float((g_card[k] - g_cpu[k]).abs().max())
+                                           for k in g_cpu))
+        out["grad_abs_max"].append(max(float(g.abs().max()) for g in g_cpu.values()))
+        out["stats_max_abs_err"].append(max(float((v - s_cpu[k]).abs().max())
+                                            for k, v in s_card.items()))
+    after = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    log(f"train 7a: flagship, batch 32, float32, 3 steps under the default flags {defaults}, "
+        f"each from the CPU's state: loss card {out['loss_card']} cpu {out['loss_cpu']} "
+        f"(rel err {out['loss_rel_err']}); grads relative L2 err {out['grad_rel_l2_err']}, "
+        f"max abs err {out['grad_max_abs_err']} "
+        f"(|grad| max {out['grad_abs_max']}); batch statistics max abs err "
+        f"{out['stats_max_abs_err']}; free-running card losses {out['loss_free_running']}; "
+        f"flags after {after}")
+    if not max(out["loss_rel_err"]) <= TRAIN_LOSS_RTOL or after != defaults \
+            or not np.isfinite(out["loss_card"]).all():
+        raise AssertionError(f"card train steps disagree with the CPU ({out['loss_rel_err']}) "
+                             f"or the caller's TF32 flags changed ({after})")
+    return out
+
+
+def train_then_serve(preset, epochs, dev, k1_per_forward, k2_per_forward):
+    """Phase 7b: ``run_fold`` on 2,048 synthetic windows at full width, then
+    the best checkpoint served on the card through ``Predictor``: launches
+    counted over one batch-128 forward, logits held against the trainer's
+    eval forward (plain modules, full float32) at MODEL_TOL."""
+    cfg = load_config(preset_path(preset))
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, epochs=epochs))
+    d = cfg.data
+    data = make_synthetic(n_windows=2048, num_classes=d.num_classes, sensor_dim=d.sensor_dim,
+                          seed=SEED)
+    splits = {k: to_device(v, dev) for k, v in split_dataset(data, seed=cfg.seed).items()}
+    ckpt_dir = os.path.join(ROOT, "outputs", "chip_smoke", preset)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    result = run_fold(cfg, splits, checkpointer=Checkpointer(ckpt_dir), device=dev)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    h = result.history
+    log(f"train 7b: {preset} run_fold, {splits['train'].n} train windows, batch "
+        f"{cfg.train.batch_size}, {epochs} epochs in {fit_s:.2f} s: train loss {h['train_loss']}, "
+        f"train acc {h['train_acc']}, val acc {h['val_acc']}, test acc "
+        f"{result.test.accuracy:.4f}")
+    best = Checkpointer(ckpt_dir).file("best")
+    if not (np.isfinite(h["train_loss"]).all() and h["train_loss"][-1] < h["train_loss"][0]
+            and h["train_acc"][-1] > 1.0 / d.num_classes and os.path.exists(best)):
+        raise AssertionError(f"{preset}: training did not learn or saved no best checkpoint")
+    pred = Predictor.from_torch_checkpoint(cfg, best, batch_size=BATCH, device=dev)
+    skel = data.features[:BATCH]
+    sens = data.sensors[:BATCH]
+    fused_stgcan_block.launches = fused_backbone_forward.launches = 0
+    logits = pred.predict_logits(skel, sens if pred.requires_sensor else None)
+    launches = (fused_stgcan_block.launches, fused_backbone_forward.launches)
+    model = result.best_state.model.eval()
+    with torch.no_grad(), full_float32():
+        ref = model(torch.from_numpy(skel).to(dev), torch.from_numpy(sens).to(dev)).cpu().numpy()
+    err = float(np.abs(logits - ref).max())
+    log(f"train 7b: {preset} best checkpoint served: stgcan_block {launches[0]}, "
+        f"fused_backbone {launches[1]} launches per batch-{BATCH} forward; logits vs the "
+        f"trainer's eval forward max_abs_err={err:.3e} (|logits| max {np.abs(ref).max():.3f})")
+    if launches != (k1_per_forward, k2_per_forward) or not err <= MODEL_TOL:
+        raise AssertionError(f"{preset}: trained weights served through {launches} launches, "
+                             f"off by {err}")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return {"preset": preset, "epochs": epochs, "fit_s": fit_s, "train_loss": h["train_loss"],
+            "train_acc": h["train_acc"], "val_acc": h["val_acc"],
+            "test_acc": result.test.accuracy, "launches": list(launches), "max_abs_err": err}
+
+
+def kernel_busy_ms(fn, n):
+    """Summed duration of the device activities (kernels, copies) of ``n``
+    calls of ``fn`` in a ``torch.profiler`` trace, in ms; None when the
+    profiler records no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if getattr(e, "device_type", None) == DeviceType.CUDA)
+    return busy / 1e3 if busy else None
+
+
+def train_timing(cfg, data, batch, dtype, dev, card, steps):
+    """Train windows/s of ``cfg`` at ``batch`` in ``dtype`` over
+    device-resident windows: host ms per step (synchronised wall clock),
+    CUDA-event ms per step, the profiler's device-busy ms per step, the
+    device's share of the step, peak memory."""
+    state = create_train_state(cfg, build_optimizer(cfg), seed=SEED, device=dev)
+    epoch = make_train_epoch(softmax_before_ce=cfg.model.softmax_output,
+                             compute_dtype=torch.bfloat16 if dtype == "bfloat16" else None)
+    idx = epoch_batch_indices(torch.Generator(dev).manual_seed(SEED), data.n, batch)
+    warm = idx[:3]
+    one = idx[:1]
+    epoch(state, data, warm)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timed = idx[:steps]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    _, m = epoch(state, data, timed)
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / steps
+    event_ms = start.elapsed_time(end) / steps
+    peak = torch.cuda.max_memory_allocated()
+    n_prof = max(3, min(5, steps // 4))
+    busy = kernel_busy_ms(lambda: epoch(state, data, one), n_prof)
+    busy_ms = None if busy is None else busy / n_prof
+    row = {"model": cfg.model.name, "dense_gcn": cfg.model.kwargs.get("dense_gcn", True),
+           "batch": batch, "dtype": dtype, "steps": steps,
+           "windows_per_s": batch / host_ms * 1e3, "host_ms_per_step": host_ms,
+           "event_ms_per_step": event_ms, "device_busy_ms_per_step": busy_ms,
+           "device_share": None if busy_ms is None else busy_ms / host_ms,
+           "max_memory_allocated_mb": peak / 2 ** 20, "loss": float(m["loss"]), "card": card}
+    busy_txt = "not measured" if busy_ms is None else f"{busy_ms:.3f} ms/step"
+    share_txt = "not measured" if busy_ms is None else f"{row['device_share']:.3f}"
+    log(f"train 7c: {cfg.model.name} dense_gcn={row['dense_gcn']} batch {batch} {dtype}: "
+        f"{row['windows_per_s']:.1f} windows/s, host {host_ms:.3f} ms/step, events "
+        f"{event_ms:.3f} ms/step, device busy {busy_txt} (share {share_txt}), "
+        f"peak {peak / 2 ** 20:.1f} MiB, loss {row['loss']:.4f} [{card}]")
+    if not np.isfinite(row["loss"]):
+        raise AssertionError(f"training timing run went non-finite: {row}")
+    del state
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_timings(dev, card):
+    """Phase 7c: flagship train windows/s at batch 32 (the preset) and 1024
+    in float32 and bfloat16 on TRAIN_WINDOWS device-resident synthetic
+    windows, and the float32 step with the dense graph conv switched off."""
+    cfg = load_config(preset_path("gstcan_urfall_3stream"))
+    d = cfg.data
+    data = to_device(make_synthetic(n_windows=TRAIN_WINDOWS, num_classes=d.num_classes,
+                                    sensor_dim=d.sensor_dim, seed=SEED), dev)
+    factored = cfg.replace(model=dataclasses.replace(
+        cfg.model, kwargs=dict(cfg.model.kwargs, dense_gcn=False)))
+    rows = []
+    for batch, steps in ((32, 40), (1024, 12)):
+        for dtype in ("float32", "bfloat16"):
+            rows.append(train_timing(cfg, data, batch, dtype, dev, card, steps))
+        rows.append(train_timing(factored, data, batch, "float32", dev, card, steps))
+    return rows
 
 
 def main() -> int:
@@ -497,6 +725,15 @@ def main() -> int:
         f"(p50 - batch-1 kernel): {lat_s['p50_ms'] - bb1_ms:.3f} ms, before the constants "
         f"were packed once: {HOST_SHARE_BEFORE_MS:.3f} ms")
 
+    # ---- phase 7: training at full width, then the trained weights served ----
+    train_7a = train_steps_card_vs_cpu(cfg, sd_random, dev, defaults)
+    train_7b = [train_then_serve("gstcan_urfall_3stream", 3, dev, k1_per_forward=14,
+                                 k2_per_forward=0),
+                train_then_serve("default_urfall", 2, dev, k1_per_forward=0, k2_per_forward=1)]
+    train_rows = train_timings(dev, card)
+
+    log(json.dumps({"train": train_rows, "steps_card_vs_cpu": train_7a,
+                    "train_then_serve": train_7b}))
     log(json.dumps({"kernels": [{
         "name": "stgcan_block",
         "route": "cuda",

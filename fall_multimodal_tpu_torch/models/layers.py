@@ -14,9 +14,35 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 
-class BatchNorm(nn.BatchNorm1d):
-    """Torch-default BatchNorm (momentum 0.1, eps 1e-5) over the LAST axis:
-    statistics are taken over every leading axis, as flax's BatchNorm does."""
+class BatchNorm1d(nn.BatchNorm1d):
+    """``nn.BatchNorm1d`` (momentum 0.1, eps 1e-5) whose train-mode update of
+    the running statistics follows flax's ``BatchNorm``, and so the JAX
+    package (``models/layers.py:42-54``): the running variance takes the
+    biased batch variance (sum over n), where stock torch takes the unbiased
+    one (over n - 1). The normalisation itself, the eval forward and the
+    parameter and buffer names are torch's."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        # torch's fused update adds momentum * var * n/(n-1) to the running
+        # variance: scaling a copy of it by n/(n-1) before the update and by
+        # (n-1)/n after leaves momentum * var (biased), without another pass
+        # over x (the copy: autograd keeps the tensor the update wrote)
+        n = x.numel() // x.shape[1]
+        unbias = n / max(n - 1, 1)
+        running_var = self.running_var * unbias
+        y = F.batch_norm(x, self.running_mean, running_var, self.weight, self.bias,
+                         True, self.momentum, self.eps)
+        with torch.no_grad():
+            torch.div(running_var, unbias, out=self.running_var)
+        self.num_batches_tracked.add_(1)
+        return y
+
+
+class BatchNorm(BatchNorm1d):
+    """:class:`BatchNorm1d` over the LAST axis: statistics are taken over
+    every leading axis, as flax's BatchNorm does."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = x.shape
@@ -31,7 +57,8 @@ class Conv1x1(nn.Conv2d):
         super().__init__(in_channels, out_channels, kernel_size=1, bias=bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight[:, :, 0, 0], self.bias)
+        # a view of the (O, I, 1, 1) weight: its backward allocates nothing
+        return F.linear(x, self.weight.flatten(1), self.bias)
 
 
 class TemporalConv(nn.Conv2d):
@@ -79,7 +106,7 @@ class GraphConv(nn.Module):
         if not self.dense_mode:
             y = self.conv(x).reshape(n, t, v, k, c)
             return torch.einsum("ntvkc,kvw->ntwc", y, A)
-        W = self.conv.weight[:, :, 0, 0].t().reshape(c_in, k, c)
+        W = self.conv.weight.flatten(1).t().reshape(c_in, k, c)
         U = torch.einsum("kvw,ikc->viwc", A, W).reshape(v * c_in, v * c)
         y = x.reshape(n, t, v * c_in) @ U
         if self.conv.bias is not None:

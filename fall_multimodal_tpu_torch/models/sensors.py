@@ -13,7 +13,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from fall_multimodal_tpu_torch.models.layers import BiLSTMLayer, MlpChannelAttention
+from fall_multimodal_tpu_torch.models.layers import BatchNorm1d, BiLSTMLayer, MlpChannelAttention
 
 
 class BiLSTMHead(nn.Module):
@@ -27,7 +27,7 @@ class BiLSTMHead(nn.Module):
             raise ValueError(f"feature must be 'last' or 'mean', got {feature!r}")
         self.feature = feature
         self.lstm1 = BiLSTMLayer(input_size, hidden_size)
-        self.batchnorm = nn.BatchNorm1d(2 * hidden_size)
+        self.batchnorm = BatchNorm1d(2 * hidden_size)
         self.channelattention = MlpChannelAttention(2 * hidden_size)
         # index 0 is the reference's dropout slot; the JAX head has no dropout
         self.fc = nn.Sequential(nn.Identity(), nn.Linear(2 * hidden_size, num_classes))
@@ -57,7 +57,7 @@ class Cnn1d(nn.Module):
     @staticmethod
     def _stage(cin: int, cout: int) -> nn.Sequential:
         return nn.Sequential(nn.Conv1d(cin, cout, 5, padding=2),
-                             nn.BatchNorm1d(cout), nn.ReLU(), nn.MaxPool1d(2))
+                             BatchNorm1d(cout), nn.ReLU(), nn.MaxPool1d(2))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.layer2(self.layer1(x.transpose(1, 2)))

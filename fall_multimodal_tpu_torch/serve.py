@@ -28,7 +28,6 @@ switches TF32 off for the call and puts the caller's settings back.
 
 from __future__ import annotations
 
-import contextlib
 import copy
 from typing import Any, Dict, Mapping, Optional
 
@@ -47,33 +46,7 @@ from fall_multimodal_tpu_torch.models import (
 from fall_multimodal_tpu_torch.models.stgcan import motion_stream
 from fall_multimodal_tpu_torch.ops.fused_backbone import FusedBackbone
 from fall_multimodal_tpu_torch.ops.fused_backbone_v2 import fold_backbone, fused_backbone_forward
-
-
-def resolve_device(device) -> torch.device:
-    """``torch.device(device)``, refusing a CUDA device when there is none."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run on the CPU")
-    return dev
-
-
-def synchronize(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
-@contextlib.contextmanager
-def full_float32():
-    """Float32 matmuls, convolutions and RNNs in full float32 inside the
-    block: cuDNN's and cuBLAS's TF32 switches off, and back to what the caller
-    had on the way out."""
-    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+from fall_multimodal_tpu_torch.utils.device import full_float32, resolve_device, synchronize
 
 
 class Predictor:

@@ -239,3 +239,96 @@ def test_predictor_is_full_float32_under_default_tf32_flags(cuda_device):  # noq
     want = Predictor(cfg, sd, batch_size=4, device="cpu").predict_logits(skel, sens)
     assert np.isfinite(got).all() and np.abs(want).max() > 0.1
     np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
+
+
+# ----------------------------------------------------------------- training
+
+def _train_data(cfg, n):
+    from fall_multimodal_tpu_torch.data import make_synthetic
+
+    d = cfg.data
+    return make_synthetic(n_windows=n, num_classes=d.num_classes, sensor_dim=d.sensor_dim,
+                          seed=0)
+
+
+@pytest.mark.cuda
+def test_train_steps_on_the_card_match_the_cpu_under_default_tf32_flags(cuda_device):  # noqa: F811
+    """Three float32 steps of the full-width flagship with cuDNN allowed to
+    use TF32 (PyTorch's default), each from the CPU's state (weights,
+    running statistics, RMSprop's averages: RMSprop turns float differences
+    of tiny gradients into steps of up to lr, so free-running runs part).
+    The train step switches TF32 off for itself, so each loss agrees with
+    the CPU at 1e-4 relative, and the gradient vectors at 2e-3 relative L2:
+    the flagship's float32 gradients, on the card and on the CPU alike, sit
+    4.4e-4 to 4.8e-4 from float64 (``experiments/torch_train_profile.py``);
+    the caller's flags are left as they were."""
+    import copy
+
+    from fall_multimodal_tpu_torch.data import gather_batch, to_device
+    from fall_multimodal_tpu_torch.interop import load_into
+    from fall_multimodal_tpu_torch.train import (
+        build_optimizer,
+        create_train_state,
+        make_train_step,
+    )
+
+    cfg = load_config(preset_path("gstcan_urfall_3stream"))
+    sd = create_train_state(cfg, build_optimizer(cfg), seed=3, device="cpu").model.state_dict()
+    data = _train_data(cfg, 96)
+    step = make_train_step(softmax_before_ce=True)
+    states = []
+    for device in (cuda_device, torch.device("cpu")):
+        state = create_train_state(cfg, build_optimizer(cfg), device=device)
+        load_into(state.model, sd)
+        states.append((state, to_device(data, device)))
+    (card, card_data), (cpu, cpu_data) = states
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        for i in range(3):
+            card.model.load_state_dict(cpu.model.state_dict())
+            card.optimizer.load_state_dict(copy.deepcopy(cpu.optimizer.state_dict()))
+            idx = np.arange(32 * i, 32 * i + 32)
+            _, m_card = step(card, gather_batch(card_data, torch.as_tensor(idx, device=cuda_device)))
+            _, m_cpu = step(cpu, gather_batch(cpu_data, torch.as_tensor(idx)))
+            np.testing.assert_allclose(float(m_card["loss"]), float(m_cpu["loss"]), rtol=1e-4)
+            diff = sum(float(((p.grad.cpu() - q.grad) ** 2).sum())
+                       for p, q in zip(card.model.parameters(), cpu.model.parameters()))
+            norm = sum(float((q.grad ** 2).sum()) for q in cpu.model.parameters())
+            assert (diff / norm) ** 0.5 <= 2e-3
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset,k1,k2", [("gstcan_urfall_3stream", 14, 0),
+                                          ("default_urfall", 0, 1)])
+def test_trained_weights_serve_through_the_kernels(cuda_device, no_tf32, tmp_path,  # noqa: F811
+                                                   preset, k1, k2):
+    """A short ``run_fold`` on the card, then its best checkpoint through
+    ``Predictor``: the kernels launch as the family's serving path says, and
+    the logits equal the trainer's eval forward at 1e-4."""
+    import dataclasses
+
+    from fall_multimodal_tpu_torch.data import split_dataset, to_device
+    from fall_multimodal_tpu_torch.train.cv import run_fold
+    from fall_multimodal_tpu_torch.utils.checkpoint import Checkpointer
+
+    cfg = load_config(preset_path(preset))
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, epochs=1))
+    data = _train_data(cfg, 256)
+    splits = {k: to_device(v, cuda_device) for k, v in split_dataset(data).items()}
+    ckpt = Checkpointer(str(tmp_path))
+    result = run_fold(cfg, splits, checkpointer=ckpt, device=cuda_device)
+    assert np.isfinite(result.history["train_loss"]).all()
+    pred = Predictor.from_torch_checkpoint(cfg, ckpt.file("best"), batch_size=64,
+                                           device=cuda_device)
+    fused_stgcan_block.launches = fused_backbone_forward.launches = 0
+    got = pred.predict_logits(data.features[:64], data.sensors[:64])
+    assert (fused_stgcan_block.launches, fused_backbone_forward.launches) == (k1, k2)
+    with torch.no_grad():
+        want = result.best_state.model.eval()(
+            torch.from_numpy(data.features[:64]).to(cuda_device),
+            torch.from_numpy(data.sensors[:64]).to(cuda_device)).cpu().numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
