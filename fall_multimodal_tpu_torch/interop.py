@@ -42,8 +42,10 @@ __all__ = [
 # The reference CNN1D defines a flatten+Linear head (32x224) that its
 # forward never calls (``GSTCAN_UR_conv.ipynb:2``); every notebook checkpoint
 # carries it. The port does not build that module and drops exactly these
-# keys when it reads a checkpoint file.
-DEAD_REFERENCE_KEYS = ("sensor.cnn.fc.weight", "sensor.cnn.fc.bias")
+# keys when it reads a checkpoint file: the three-stream models' ``sensor``
+# head, and the transformer ensemble's ``signal_model``.
+DEAD_REFERENCE_KEYS = ("sensor.cnn.fc.weight", "sensor.cnn.fc.bias",
+                       "signal_model.cnn.fc.weight", "signal_model.cnn.fc.bias")
 # The repository's parity fixtures (``tests/fixtures/reference_*.npz``) store
 # the reference's inputs and output beside its weights under these names.
 FIXTURE_ARRAYS = ("x", "sensor", "out")
@@ -105,7 +107,8 @@ def load_state_dict_file(path: str) -> Dict[str, np.ndarray]:
     Takes an ``.npz`` of named arrays, or a ``.pt``/``.pth`` holding a raw
     state_dict or one wrapped under ``model``/``state_dict``/
     ``model_state_dict`` (``main.py:323-341``). Drops
-    :data:`DEAD_REFERENCE_KEYS`, and an ``.npz``'s :data:`FIXTURE_ARRAYS`;
+    :data:`DEAD_REFERENCE_KEYS` and an
+    ``.npz``'s :data:`FIXTURE_ARRAYS`;
     Gen-2 spellings are normalised (:func:`normalize_reference_keys`).
     """
     if path.endswith(".npz"):
@@ -206,6 +209,13 @@ def _join(prefix: str, name: str) -> str:
     return f"{prefix}.{name}" if prefix else name
 
 
+def _end_conv_inv(kernel: np.ndarray, steps: int) -> np.ndarray:
+    """flax Dense over (steps, H) ``(steps*H, O)`` -> torch ``Conv2d(steps, O,
+    (1, H))`` weight ``(O, steps, 1, H)``."""
+    o = kernel.shape[1]
+    return np.ascontiguousarray(np.transpose(kernel.reshape(steps, -1, o), (2, 0, 1))[:, :, None])
+
+
 class _Writer:
     def __init__(self, params: _FlaxReader, stats: _FlaxReader):
         self.p, self.s = params, stats
@@ -213,17 +223,28 @@ class _Writer:
 
     def bn(self, theirs: str, *ours: str) -> None:
         """Our ``BatchNorm`` wrapper (inner ``BatchNorm_0``) -> torch BN."""
-        inner = ours + ("BatchNorm_0",)
-        self.sd[f"{theirs}.weight"] = self.p(*inner, "scale")
-        self.sd[f"{theirs}.bias"] = self.p(*inner, "bias")
-        self.sd[f"{theirs}.running_mean"] = self.s(*inner, "mean")
-        self.sd[f"{theirs}.running_var"] = self.s(*inner, "var")
+        self.raw_bn(theirs, *ours, "BatchNorm_0")
+
+    def raw_bn(self, theirs: str, *ours: str) -> None:
+        """A bare flax ``nn.BatchNorm`` (no wrapper level) -> torch BN."""
+        self.layer_norm(theirs, *ours)
+        self.sd[f"{theirs}.running_mean"] = self.s(*ours, "mean")
+        self.sd[f"{theirs}.running_var"] = self.s(*ours, "var")
         # flax keeps no step count; momentum 0.1 never reads it
         self.sd[f"{theirs}.num_batches_tracked"] = np.array(0, np.int64)
 
-    def dense(self, theirs: str, *ours: str, inv=_dense_inv) -> None:
-        self.sd[f"{theirs}.weight"] = inv(self.p(*ours, "kernel"))
+    def layer_norm(self, theirs: str, *ours: str) -> None:
+        """A flax norm's affine (``scale``, ``bias``) -> torch's."""
+        self.sd[f"{theirs}.weight"] = self.p(*ours, "scale")
         self.sd[f"{theirs}.bias"] = self.p(*ours, "bias")
+
+    def dense(self, theirs: str, *ours: str, inv=_dense_inv, bias: bool = True) -> None:
+        self.sd[f"{theirs}.weight"] = inv(self.p(*ours, "kernel"))
+        if bias:
+            self.sd[f"{theirs}.bias"] = self.p(*ours, "bias")
+
+    def optional_bias_dense(self, theirs: str, *ours: str, inv=_dense_inv) -> None:
+        self.dense(theirs, *ours, inv=inv, bias=(*ours, "bias") in self.p.flat)
 
     def backbone(self, theirs: str, ours: str, stages, in_channels: int, A) -> None:
         self.sd[_join(theirs, "A")] = A
@@ -272,6 +293,142 @@ class _Writer:
         self.bilstm_head(_join(theirs, "bilstm"), *ours, "BiLSTMHead_0")
 
 
+    # ---- Gen-3 musa (JAX ``interop.py:_convert_musa``)
+
+    def musa(self, model, A) -> None:
+        n_stage = len(model.stream_pos) // 3
+        with_tail = len(model.stream_pos) % 3 == 1
+        idx = len(model.joint_embed_pos.cnn) - 1            # 1 behind embed_norm's BN
+        if idx:
+            self.bn("joint_embed_pos.cnn.0.bn", "norm_pos")
+        for theirs, ours in (("joint_embed_pos", "joint_embed_pos"),
+                             ("joint_embed_mos", "joint_embed_mot")):
+            self.optional_bias_dense(f"{theirs}.cnn.{idx}.cnn", ours, inv=_conv1x1_inv)
+        for stream in ("stream_pos", "stream_mot"):
+            for s in range(n_stage):
+                ours, t = (stream, f"sgc{s}"), f"{stream}.{3 * s}"
+                self.sd[f"{t}.A"] = A
+                if (*ours, "edge") in self.p.flat:
+                    self.sd[f"{t}.edge"] = self.p(*ours, "edge")
+                self.optional_bias_dense(f"{t}.gcn", *ours, "Dense_0", inv=_conv1x1_inv)
+                self.bn(f"{t}.bn", *ours, "bn")
+                if (*ours, "res_proj", "kernel") in self.p.flat:
+                    self.optional_bias_dense(f"{t}.residual.0", *ours, "res_proj",
+                                             inv=_conv1x1_inv)
+                    self.bn(f"{t}.residual.1", *ours, "res_bn")
+                for off, tag in ((1, "a"), (2, "b")):
+                    ours, t = (stream, f"sep{s}{tag}"), f"{stream}.{3 * s + off}"
+                    self.sd[f"{t}.A"] = A
+                    if (*ours, "edge") in self.p.flat:
+                        self.sd[f"{t}.edge"] = self.p(*ours, "edge")
+                    self.optional_bias_dense(f"{t}.depth_conv.0", *ours, "depthwise",
+                                             inv=_conv_t_inv)
+                    self.bn(f"{t}.depth_conv.1", *ours, "depth_bn")
+                    self.optional_bias_dense(f"{t}.point_conv.0", *ours, "pointwise",
+                                             inv=_conv1x1_inv)
+                    self.bn(f"{t}.point_conv.1", *ours, "point_bn")
+                    if (*ours, "res_proj", "kernel") in self.p.flat:
+                        self.optional_bias_dense(f"{t}.residual.0", *ours, "res_proj",
+                                                 inv=_conv1x1_inv)
+                        self.bn(f"{t}.residual.1", *ours, "res_bn")
+            if with_tail:
+                ours, t = (stream, "tail"), f"{stream}.{3 * n_stage}"
+                for sep in ("sep31", "sep11"):
+                    self.dense(f"{t}.{sep}.seq.0", *ours, sep, "depthwise", inv=_conv_t_inv)
+                    self.bn(f"{t}.{sep}.seq.1", *ours, sep, "bn1")
+                    self.dense(f"{t}.{sep}.seq.3", *ours, sep, "pointwise", inv=_conv1x1_inv)
+                    self.bn(f"{t}.{sep}.seq.4", *ours, sep, "bn2")
+                self.dense(f"{t}.shortcut", *ours, "shortcut", inv=_conv1x1_inv)
+        self.dense("fc.seq.0", "fc", "Dense_0")
+        self.layer_norm("fc.seq.2", "fc", "LayerNorm_0")
+        self.dense("fc.seq.5", "fc", "Dense_1")
+
+    # ---- Gen-1 TARGCN (JAX ``interop.py:_port_targcn``)
+
+    def gru_gcn(self, theirs: str, *ours: str) -> None:
+        """One graph conv of a graph-GRU cell, any ``gcn_variant``."""
+        if (*ours, "weights_pool") in self.p.flat:            # gated | nogate
+            self.sd[f"{theirs}.weights_pool"] = self.p(*ours, "weights_pool")
+            self.sd[f"{theirs}.bias_pool"] = self.p(*ours, "bias_pool")
+            if (*ours, "static_linear", "kernel") in self.p.flat:
+                self.dense(f"{theirs}.linear", *ours, "static_linear")
+        elif (*ours, "Dense_0", "kernel") in self.p.flat:      # linear
+            self.dense(f"{theirs}.linear", *ours, "Dense_0")
+        else:                                                  # sa
+            self.dense(f"{theirs}.wq", *ours, "wq")
+            self.dense(f"{theirs}.wk", *ours, "wk")
+            self.dense(f"{theirs}.wv", *ours, "wv", bias=False)
+
+    def ta_layer(self, theirs: str, *ours: str) -> None:
+        """One TA layer (``TA.py:22-69``)."""
+        self.dense(f"{theirs}.vff", *ours, "vff")
+        self.dense(f"{theirs}.conv1", *ours, "conv_q", inv=_conv_t_inv)
+        self.dense(f"{theirs}.conv2", *ours, "conv_k", inv=_conv_t_inv)
+        self.layer_norm(f"{theirs}.ln", *ours, "ln")
+        self.layer_norm(f"{theirs}.lnff", *ours, "lnff")
+        self.dense(f"{theirs}.ff.0", *ours, "ff1")
+        self.dense(f"{theirs}.ff.2", *ours, "ff2")
+
+    def targcn(self, model) -> None:
+        self.sd["node_embeddings"] = self.p("node_embeddings")
+        for layer in range(len(model.encoder.dcrnn_cells)):
+            for gate in ("gate", "update"):
+                self.gru_gcn(f"encoder.dcrnn_cells.{layer}.{gate}",
+                             "encoder", f"layer{layer}", "cell", gate)
+        ta = model.encoder.trans_layer_T
+        self.sd["encoder.trans_layer_T.PE.pe"] = ta.PE.pe.numpy()
+        for i in range(len(ta.trans_layers)):
+            self.ta_layer(f"encoder.trans_layer_T.trans_layers.{i}",
+                          "encoder", "temporal_transformer", f"layer{i}")
+        self.dense("end_conv", "end_conv",
+                   inv=lambda k: _end_conv_inv(k, model.context_steps))
+        self.dense("fc.2", "head")
+
+    # ---- Gen-1 skeleton transformer (JAX ``interop.py:_port_skeleton_transformer``)
+
+    def attention(self, theirs: str, *ours: str) -> None:
+        self.dense(f"{theirs}.w_qkv", *ours, "w_qkv")
+        self.dense(f"{theirs}.merge", *ours, "merge")
+        self.sd[f"{theirs}.relative_position_bias_table"] = self.p(*ours, "rel_pos_bias")
+
+    def b2t_st_block(self, theirs: str, *ours: str) -> None:
+        """A ``B2TSpatialTemporalBlock`` (BatchNorm3d norms)."""
+        self.attention(f"{theirs}.multi_head_spatial_self_attention", *ours, "spatial_attn")
+        self.attention(f"{theirs}.multi_head_temporal_self_attention", *ours, "temporal_attn")
+        for n in ("norm1", "norm2", "norm3"):
+            self.raw_bn(f"{theirs}.{n}", *ours, n)
+        self.ffn(f"{theirs}.feed_forward_network", *ours, "ffn")
+
+    def ffn(self, theirs: str, *ours: str) -> None:
+        self.dense(f"{theirs}.0", *ours, "Dense_0")
+        self.dense(f"{theirs}.2", *ours, "Dense_1")
+
+    def b2t_block(self, theirs: str, *ours: str) -> None:
+        """A single-axis ``B2TBlock`` (``skeleton_transformer.py:291-320``)."""
+        self.attention(f"{theirs}.multi_head_spatial_self_attention", *ours, "attn")
+        self.layer_norm(f"{theirs}.norm1", *ours, "norm1")
+        self.layer_norm(f"{theirs}.norm3", *ours, "norm3")
+        self.ffn(f"{theirs}.feed_forward_network", *ours, "ffn")
+
+    def skeleton_transformer(self, theirs: str, model, *ours: str) -> None:
+        self.dense(_join(theirs, "embedding.0"), *ours, "embed1")
+        self.dense(_join(theirs, "embedding.2"), *ours, "embed2")
+        self.dense(_join(theirs, "fcn.0"), *ours, "head", inv=_conv1x1_inv)
+        from fall_multimodal_tpu_torch.models.skeleton_transformer import TransposeAxis
+
+        blocks = model.extractor
+        transposes = [i for i, b in enumerate(blocks) if isinstance(b, TransposeAxis)]
+        if transposes:                                         # Ablation1
+            half = transposes[0]
+            for i in range(half):
+                self.b2t_block(_join(theirs, f"extractor.{i}"), *ours, f"spatial{i}")
+                self.b2t_block(_join(theirs, f"extractor.{half + 1 + i}"), *ours,
+                               f"temporal{i}")
+        else:
+            for i in range(len(blocks)):
+                self.b2t_st_block(_join(theirs, f"extractor.{i}"), *ours, f"block{i}")
+
+
 def state_dict_from_jax_variables(config: Config,
                                   variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
     """The port's state_dict for ``config``'s model from the JAX package's
@@ -281,8 +438,12 @@ def state_dict_from_jax_variables(config: Config,
     port's model key for key and shape for shape.
     """
     from fall_multimodal_tpu_torch.models import (
+        TARGCN,
+        MusaModel,
+        SkeletonTransformer,
         STGCANClassifier,
         ThreeStreamGSTCAN,
+        TransformerEnsemble,
         TwoStreamSTGCAN,
         build_model,
     )
@@ -307,6 +468,18 @@ def state_dict_from_jax_variables(config: Config,
             else:
                 w.bilstm_head("sensor", "BiLSTMHead_0")
         w.dense("fcn", "Dense_0")
+    elif isinstance(model, MusaModel):
+        w.musa(model, build_adjacency(config.graph.layout,
+                                      config.graph.strategy).astype(np.float32))
+    elif isinstance(model, TARGCN):
+        w.targcn(model)
+    elif isinstance(model, SkeletonTransformer):
+        w.skeleton_transformer("", model)
+    elif isinstance(model, TransformerEnsemble):
+        w.skeleton_transformer("skeleton_transformer", model.skeleton_transformer,
+                               "skeleton_transformer")
+        w.cnn_bilstm_head("signal_model", "signal_model")
+        w.dense("fc.0", "Dense_0")
     elif isinstance(model, SensorOnlyCnnBiLSTM):
         w.cnn_bilstm_head("", "head")
     elif isinstance(model, SensorOnlyBiLSTM):

@@ -7,12 +7,16 @@
   ``cls.*``);
 * :class:`TwoStreamSTGCAN` — points + motion, concat 512 -> ``fcn``;
 * :class:`ThreeStreamGSTCAN` — points + motion + sensor encoder, concat
-  (512 + num_classes) -> ``fcn``.
+  (512 + num_classes) -> ``fcn``;
+* :class:`TransformerEnsemble` — the skeleton transformer's logits and a
+  CNN_BiLSTM's on the sensor, concat -> ``fc.0`` (``fusion.py:113-146``).
 
 Names follow the notebook reference (``pts_stream``, ``mot_stream``,
 ``sensor``, ``fcn``); the notebook's trailing softmax is not part of the
 forward, logits stay logits. Every model shares the forward contract
-``module(skeleton (N,T,V,C), sensor (N,T,S) | None) -> (N, num_classes)``.
+``module(skeleton (N,T,V,C), sensor (N,T,S) | None, generator=None) ->
+(N, num_classes)``; ``generator`` (the train state's) feeds every draw a
+train-mode forward makes, and an eval forward takes none.
 """
 
 from __future__ import annotations
@@ -22,7 +26,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
-from fall_multimodal_tpu_torch.models.sensors import build_sensor_encoder
+from fall_multimodal_tpu_torch.models.sensors import CnnBiLSTMHead, build_sensor_encoder
+from fall_multimodal_tpu_torch.models.skeleton_transformer import SkeletonTransformer
 from fall_multimodal_tpu_torch.models.stgcan import (
     STGCAN_STAGES,
     STGCANBackbone,
@@ -43,9 +48,9 @@ class STGCANClassifier(STGCANBackbone):
                          graph_strategy=graph_strategy, num_classes=num_classes,
                          stages=stages, dropout=dropout, dense_gcn=dense_gcn)
 
-    def forward(self, skeleton: torch.Tensor,
-                sensor: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return super().forward(skeleton)
+    def forward(self, skeleton: torch.Tensor, sensor: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return super().forward(skeleton, generator)
 
 
 class TwoStreamSTGCAN(nn.Module):
@@ -64,10 +69,10 @@ class TwoStreamSTGCAN(nn.Module):
         self.mot_stream = STGCANBackbone(2, **kw)
         self.fcn = nn.Linear(2 * self.pts_stream.stages[-1][0], num_classes)
 
-    def forward(self, skeleton: torch.Tensor,
-                sensor: Optional[torch.Tensor] = None) -> torch.Tensor:
-        pts = self.pts_stream(skeleton)
-        mot = self.mot_stream(motion_stream(skeleton))
+    def forward(self, skeleton: torch.Tensor, sensor: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        pts = self.pts_stream(skeleton, generator)
+        mot = self.mot_stream(motion_stream(skeleton), generator)
         return self.fcn(torch.cat([pts, mot], dim=-1))
 
 
@@ -89,8 +94,32 @@ class ThreeStreamGSTCAN(nn.Module):
         features = 2 * self.pts_stream.stages[-1][0] + num_classes
         self.fcn = nn.Linear(features, num_classes)
 
-    def forward(self, skeleton: torch.Tensor, sensor: torch.Tensor) -> torch.Tensor:
-        pts = self.pts_stream(skeleton)
-        mot = self.mot_stream(motion_stream(skeleton))
+    def forward(self, skeleton: torch.Tensor, sensor: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        pts = self.pts_stream(skeleton, generator)
+        mot = self.mot_stream(motion_stream(skeleton), generator)
         sen = self.sensor(sensor)
         return self.fcn(torch.cat([pts, mot, sen], dim=-1))
+
+
+class TransformerEnsemble(nn.Module):
+    """``skeleton_transformer`` (points) + ``signal_model`` (CNN_BiLSTM on the
+    sensor), their logits concatenated -> ``fc.0`` (notebook
+    ``GSTCAN_HAR_conv_kfold_trans.ipynb:3`` ``Ensemble``). The reference's
+    ``signal_model.cnn.fc`` is never called and not built
+    (``interop.DEAD_REFERENCE_KEYS``)."""
+
+    def __init__(self, num_classes: int, in_channels: int = 3, sensor_dim: int = 15,
+                 n_joints: int = 14, seq_len: int = 30, embedding_dim: int = 32,
+                 n_block: int = 6, head_dim: int = 16, n_heads: int = 8):
+        super().__init__()
+        self.skeleton_transformer = SkeletonTransformer(
+            num_classes, in_channels=in_channels, n_joints=n_joints, seq_len=seq_len,
+            embedding_dim=embedding_dim, n_block=n_block, head_dim=head_dim, n_heads=n_heads)
+        self.signal_model = CnnBiLSTMHead(sensor_dim, num_classes)
+        self.fc = nn.Sequential(nn.Linear(2 * num_classes, num_classes))
+
+    def forward(self, skeleton: torch.Tensor, sensor: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        out1 = self.skeleton_transformer(skeleton, generator=generator)
+        return self.fc(torch.cat([out1, self.signal_model(sensor)], dim=-1))

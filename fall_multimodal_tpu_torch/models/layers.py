@@ -9,9 +9,87 @@ channel-last, as the JAX package does, so tensors compare directly.
 
 from __future__ import annotations
 
+from typing import Callable, Optional
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+
+def activation_factory(name: Optional[str]) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Activations of the reference factory (``musa_model.py:19-37``; JAX
+    ``models/layers.py:20-39``): ``leakyrelu`` has slope 0.2, ``gelu`` is the
+    exact erf form. The reference's ``acon``/``metaacon`` name classes it
+    never defines; here they raise ``ValueError`` like any unknown name."""
+    table = {
+        "relu": torch.relu,
+        "leakyrelu": lambda x: F.leaky_relu(x, 0.2),
+        "tanh": torch.tanh,
+        "gelu": F.gelu,
+        "hardswish": F.hardswish,
+        "linear": lambda x: x,
+        None: lambda x: x,
+    }
+    if name not in table:
+        raise ValueError(f"Not supported activation: {name}")
+    return table[name]
+
+
+def require_generator(generator: Optional[torch.Generator]) -> torch.Generator:
+    """The generator a train-mode draw takes; a draw never falls back to
+    torch's global generator."""
+    if generator is None:
+        raise ValueError("a train-mode forward that draws (dropout, DropGraph, stochastic "
+                         "depth) needs generator=<the train state's torch.Generator>")
+    return generator
+
+
+def dropout(x: torch.Tensor, p: float, training: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout whose mask is drawn from ``generator`` (the train
+    state's), never from torch's global generator. Eval, or ``p == 0``, is
+    the identity and draws nothing."""
+    if not training or p == 0.0:
+        return x
+    keep = torch.empty_like(x).bernoulli_(1.0 - p, generator=require_generator(generator))
+    return x * keep / (1.0 - p)
+
+
+class Dropout(nn.Module):
+    """:func:`dropout` as a module (no parameters: it holds a reference
+    ``nn.Dropout``'s place in a ``Sequential``); ``forward(x, generator)``."""
+
+    def __init__(self, p: float = 0.5):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return dropout(x, self.p, self.training, generator)
+
+    def extra_repr(self) -> str:
+        return f"p={self.p}"
+
+
+def register_constant(module: nn.Module, name: str, value: torch.Tensor,
+                      atol: float = 1e-5) -> None:
+    """A buffer that the reference saves in its state_dict but that is a
+    function of the config (an adjacency, a positional table): saved under
+    its reference name, and a checkpoint whose value differs from the
+    model's own by more than ``atol`` is refused when it is loaded."""
+    module.register_buffer(name, value)
+
+    def check(mod, state_dict, prefix, *args):
+        key = prefix + name
+        if key not in state_dict:
+            return
+        theirs = torch.as_tensor(state_dict[key]).detach().cpu().double()
+        ours = getattr(mod, name).detach().cpu().double()
+        if theirs.shape != ours.shape or not torch.allclose(theirs, ours, rtol=0, atol=atol):
+            raise ValueError(f"checkpoint {key!r} differs from the constant the config "
+                             f"builds ({tuple(ours.shape)}); wrong graph or seq_len?")
+
+    module.register_load_state_dict_pre_hook(check)
 
 
 class BatchNorm1d(nn.BatchNorm1d):
@@ -49,7 +127,13 @@ class BatchNorm(BatchNorm1d):
         return super().forward(x.reshape(-1, shape[-1])).reshape(shape)
 
 
-class Conv1x1(nn.Conv2d):
+class DenseConv2d(nn.Conv2d):
+    """A ``Conv2d`` whose kernel spans its input window, which the JAX package
+    holds as a flax ``Dense``: :func:`~fall_multimodal_tpu_torch.models.init.
+    reinitialize` draws it as a linear."""
+
+
+class Conv1x1(DenseConv2d):
     """A 1x1 ``Conv2d`` (reference parameter shapes) applied channel-last:
     ``(..., I) -> (..., O)``."""
 
@@ -63,13 +147,15 @@ class Conv1x1(nn.Conv2d):
 
 class TemporalConv(nn.Conv2d):
     """(k, 1) convolution over the T axis of an ``(N, T, V, C)`` tensor,
-    padding (k-1)/2, stride over T only (``layers.py:57-76``)."""
+    padding (k-1)/2, stride over T only (``layers.py:57-76``); ``groups`` =
+    channels makes it depthwise (weight ``(C, 1, k, 1)``)."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 kernel_size: int = 9, stride: int = 1, bias: bool = True):
+                 kernel_size: int = 9, stride: int = 1, bias: bool = True,
+                 groups: int = 1):
         pad = (kernel_size - 1) // 2
         super().__init__(in_channels, out_channels, (kernel_size, 1),
-                         stride=(stride, 1), padding=(pad, 0), bias=bias)
+                         stride=(stride, 1), padding=(pad, 0), bias=bias, groups=groups)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = super().forward(x.permute(0, 3, 1, 2))          # (N, C, T, V)

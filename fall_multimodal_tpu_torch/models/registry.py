@@ -3,8 +3,11 @@
 Registered: the STGCAN families ``stgcan`` (alias ``stgcn``; single
 stream), ``two_stgcan`` (points + motion), ``two_stgcan_bilstm`` and
 ``gstcan_3stream`` (points + motion + sensor; the latter is the flagship),
-and the sensor-only ``bilstm`` and ``cnn_bilstm``. Every module shares the
-forward contract ``module(skeleton, sensor) -> (N, K) logits``.
+the sensor-only ``bilstm`` and ``cnn_bilstm``, the Gen-3 ``musa`` and
+``musa_ablation``, and the Gen-1 ``targcn``, ``skeleton_transformer``,
+``skeleton_transformer_factorized`` and ``transformer_ensemble`` (skeleton
+transformer + sensor). Every module shares the forward contract
+``module(skeleton, sensor, generator=None) -> (N, K) logits``.
 """
 
 from __future__ import annotations
@@ -17,9 +20,13 @@ from fall_multimodal_tpu_torch.configs import Config
 from fall_multimodal_tpu_torch.models.fusion import (
     STGCANClassifier,
     ThreeStreamGSTCAN,
+    TransformerEnsemble,
     TwoStreamSTGCAN,
 )
+from fall_multimodal_tpu_torch.models.musa import MusaModel
 from fall_multimodal_tpu_torch.models.sensors import SensorOnlyBiLSTM, SensorOnlyCnnBiLSTM
+from fall_multimodal_tpu_torch.models.skeleton_transformer import SkeletonTransformer
+from fall_multimodal_tpu_torch.models.targcn import TARGCN
 
 _REGISTRY: Dict[str, Callable[[Config, Dict[str, Any]], nn.Module]] = {}
 # Families whose forward reads the sensor stream; serving refuses
@@ -95,3 +102,48 @@ def _bilstm(cfg: Config, kw):
 @register("cnn_bilstm", uses_sensor=True)
 def _cnn_bilstm(cfg: Config, kw):
     return SensorOnlyCnnBiLSTM(cfg.data.sensor_dim, cfg.data.num_classes, **kw)
+
+
+def _musa_kwargs(cfg: Config, kw) -> Dict[str, Any]:
+    kw.pop("max_frame", None)   # a reference constructor argument the math never reads
+    return dict(num_classes=cfg.data.num_classes, in_channels=cfg.data.in_channels,
+                num_joints=cfg.data.num_joints, graph_layout=cfg.graph.layout,
+                graph_strategy=cfg.graph.strategy, **kw)
+
+
+@register("musa")
+def _musa(cfg: Config, kw):
+    return MusaModel(**_musa_kwargs(cfg, kw))
+
+
+@register("musa_ablation")
+def _musa_ablation(cfg: Config, kw):
+    kw["with_tail"] = False
+    return MusaModel(**_musa_kwargs(cfg, kw))
+
+
+@register("targcn")
+def _targcn(cfg: Config, kw):
+    return TARGCN(num_classes=cfg.data.num_classes, num_nodes=cfg.data.num_joints,
+                  in_channels=cfg.data.in_channels, seq_len=cfg.data.seq_len, **kw)
+
+
+def _transformer_kwargs(cfg: Config, kw) -> Dict[str, Any]:
+    return dict(num_classes=cfg.data.num_classes, in_channels=cfg.data.in_channels,
+                n_joints=cfg.data.num_joints, seq_len=cfg.data.seq_len, **kw)
+
+
+@register("skeleton_transformer")
+def _skeleton_transformer(cfg: Config, kw):
+    return SkeletonTransformer(**_transformer_kwargs(cfg, kw))
+
+
+@register("skeleton_transformer_factorized")
+def _skeleton_transformer_factorized(cfg: Config, kw):
+    kw["factorized"] = True
+    return SkeletonTransformer(**_transformer_kwargs(cfg, kw))
+
+
+@register("transformer_ensemble", uses_sensor=True)
+def _transformer_ensemble(cfg: Config, kw):
+    return TransformerEnsemble(sensor_dim=cfg.data.sensor_dim, **_transformer_kwargs(cfg, kw))

@@ -44,8 +44,9 @@ class Cnn1d(nn.Module):
 
     The reference ``CNN1D`` also defines a flatten+Linear ``fc`` (32x224)
     that its forward never calls. It is not built here; the checkpoint
-    loader drops exactly ``sensor.cnn.fc.weight`` and ``sensor.cnn.fc.bias``
-    by name (``interop.DEAD_REFERENCE_KEYS``).
+    loader drops ``sensor.cnn.fc.{weight,bias}`` (and the transformer
+    ensemble's ``signal_model.cnn.fc.*``) by name
+    (``interop.DEAD_REFERENCE_KEYS``).
     """
 
     def __init__(self, in_channels: int, channels: tuple = (16, 32)):
@@ -83,15 +84,15 @@ class SensorOnlyBiLSTM(BiLSTMHead):
     (the ``bilstm`` family); the reference's standalone ``BiLSTM`` keeps its
     state_dict keys at the root, so the head is subclassed, not nested."""
 
-    def forward(self, skeleton, sensor: torch.Tensor) -> torch.Tensor:
-        return super().forward(sensor)
+    def forward(self, skeleton, sensor: torch.Tensor, generator=None) -> torch.Tensor:
+        return super().forward(sensor)         # draws nothing: no generator needed
 
 
 class SensorOnlyCnnBiLSTM(CnnBiLSTMHead):
     """:class:`CnnBiLSTMHead` on the ``(skeleton, sensor)`` forward contract
     (the ``cnn_bilstm`` family)."""
 
-    def forward(self, skeleton, sensor: torch.Tensor) -> torch.Tensor:
+    def forward(self, skeleton, sensor: torch.Tensor, generator=None) -> torch.Tensor:
         return super().forward(sensor)
 
 

@@ -18,6 +18,7 @@ from fall_multimodal_tpu_torch.graphs import build_adjacency
 from fall_multimodal_tpu_torch.models.layers import (
     BatchNorm,
     Conv1x1,
+    Dropout,
     GraphConv,
     SqueezeExcite,
     TemporalConv,
@@ -37,7 +38,8 @@ STGCAN_STAGES: Tuple[Tuple[int, int, bool], ...] = (
 
 class STGCANBlock(nn.Module):
     """One st_gcan unit: GraphConv -> (BN, ReLU, TConv(9,1), BN, Dropout)
-    -> SE channel attention -> + residual -> ReLU.
+    -> SE channel attention -> + residual -> ReLU. The dropout mask is drawn
+    from the ``generator`` the forward is given (the train state's).
 
     ``residual_mode`` is ``"none"`` (first block), ``"identity"`` (same
     width, stride 1) or ``"proj"`` (1x1 conv + BN on ``x[:, ::stride]``).
@@ -55,7 +57,7 @@ class STGCANBlock(nn.Module):
             nn.ReLU(),
             TemporalConv(out_channels, out_channels, temporal_kernel, stride),
             BatchNorm(out_channels),
-            nn.Dropout(dropout),
+            Dropout(dropout),
         )
         self.channel_attention_module = SqueezeExcite(out_channels)
         if not residual:
@@ -67,8 +69,12 @@ class STGCANBlock(nn.Module):
             self.residual = nn.Sequential(
                 Conv1x1(in_channels, out_channels), BatchNorm(out_channels))
 
-    def forward(self, x: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
-        y = self.channel_attention_module(self.tcn(self.gcn(x, A)))
+    def forward(self, x: torch.Tensor, A: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        y = self.gcn(x, A)
+        for layer in self.tcn[:-1]:
+            y = layer(y)
+        y = self.channel_attention_module(self.tcn[-1](y, generator))
         if self.residual_mode == "identity":
             y = y + x
         elif self.residual_mode == "proj":
@@ -105,11 +111,12 @@ class STGCANBackbone(nn.Module):
             [nn.Parameter(torch.ones_like(A)) for _ in blocks])
         self.cls = Conv1x1(cin, num_classes) if num_classes is not None else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         n, t, v, c = x.shape
         y = self.data_bn(x.reshape(n, t, v * c)).reshape(n, t, v, c)
         for i, block in enumerate(self.st_gcn_networks):
-            y = block(y, self.A * self.edge_importance[i])
+            y = block(y, self.A * self.edge_importance[i], generator)
         y = y.mean(dim=(1, 2))
         if self.cls is not None:
             y = self.cls(y)

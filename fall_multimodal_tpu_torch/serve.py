@@ -9,8 +9,12 @@ Counterpart of ``fall_multimodal_tpu/serve.py``:
   fused_backbone_forward`), each stream of the two- and three-stream models
   through a :class:`~fall_multimodal_tpu_torch.ops.fused_backbone.
   FusedBackbone` (every block through the fused STGCAN-block kernel), the
-  sensor-only models as plain modules; pads ragged requests to
-  ``batch_size`` and chunks larger ones;
+  sensor-only models and the Gen-3 / Gen-1 families (``musa``, ``targcn``,
+  the skeleton transformers and their ensemble) as plain modules; pads
+  ragged requests to ``batch_size`` and chunks larger ones; with
+  ``num_copies`` > 1 it averages the logits of k time slices of each window
+  (:func:`~fall_multimodal_tpu_torch.train.loop.k_copies_logits`), each
+  slice through the same kernels;
 * :class:`StreamingClassifier` — online sliding-window inference over a
   live pose/sensor stream;
 * :func:`measure_push_latency` and the ``predict | latency | serve`` CLI.
@@ -38,6 +42,7 @@ from fall_multimodal_tpu_torch.configs import Config
 from fall_multimodal_tpu_torch.interop import load_into, load_state_dict_file
 from fall_multimodal_tpu_torch.models import (
     STGCANClassifier,
+    TARGCN,
     ThreeStreamGSTCAN,
     TwoStreamSTGCAN,
     build_model,
@@ -46,6 +51,7 @@ from fall_multimodal_tpu_torch.models import (
 from fall_multimodal_tpu_torch.models.stgcan import motion_stream
 from fall_multimodal_tpu_torch.ops.fused_backbone import FusedBackbone
 from fall_multimodal_tpu_torch.ops.fused_backbone_v2 import fold_backbone, fused_backbone_forward
+from fall_multimodal_tpu_torch.train.loop import k_copies_logits
 from fall_multimodal_tpu_torch.utils.device import full_float32, resolve_device, synchronize
 
 
@@ -55,16 +61,25 @@ class Predictor:
     ``state_dict`` holds the model's weights under the reference names
     (arrays or tensors). Smaller requests are padded to ``batch_size`` by
     repeating the last window, larger ones chunked. Skeleton-only families
-    take ``sensor=None``.
+    take ``sensor=None``. ``num_copies`` > 1 serves the Gen-3 k-copies
+    rule: the mean logits of ``num_copies`` contiguous time slices of each
+    window (``Multimodal_Fall3/main.py:150-161``).
     """
 
     def __init__(self, config: Config, state_dict: Mapping[str, Any],
-                 batch_size: int = 128, device="cuda"):
+                 batch_size: int = 128, device="cuda", num_copies: int = 1):
+        if not 1 <= num_copies <= config.data.seq_len:
+            raise ValueError(f"num_copies={num_copies} must be between 1 and the window "
+                             f"length {config.data.seq_len}")
         self.config = config
         self.device = resolve_device(device)
         self.batch_size = batch_size
+        self.num_copies = num_copies
         self.requires_sensor = uses_sensor(config.model.name)
         self.model = load_into(build_model(config), state_dict).to(self.device).eval()
+        if num_copies > 1 and isinstance(self.model, TARGCN):
+            raise ValueError(f"num_copies={num_copies}: TARGCN takes only whole windows of "
+                             f"T={config.data.seq_len} frames, so it serves num_copies=1")
         # what the family's forward runs through; folded once, here
         self.folded = self.pts_fb = self.mot_fb = None
         if isinstance(self.model, STGCANClassifier):
@@ -75,7 +90,8 @@ class Predictor:
 
     def with_batch_size(self, batch_size: int) -> "Predictor":
         """A predictor over the same model and folded weights at another
-        batch size (e.g. batch 1 for streaming)."""
+        batch size (e.g. batch 1 for streaming), with the same
+        ``num_copies``."""
         if batch_size == self.batch_size:
             return self
         other = copy.copy(self)
@@ -92,8 +108,15 @@ class Predictor:
         """Logits of one batch already on the device: the single-stream
         classifier as one whole-backbone kernel launch, the two- and
         three-stream models through one kernel launch per block of each
-        stream, the sensor-only models as plain modules. The plain modules
-        run in full float32 (:func:`full_float32`)."""
+        stream, the other families as plain modules, each once per time
+        slice under k-copies. The plain modules run in full float32
+        (:func:`full_float32`)."""
+        if self.num_copies > 1:
+            return k_copies_logits(self._forward, skeleton, sensor, self.num_copies)
+        return self._forward(skeleton, sensor)
+
+    def _forward(self, skeleton: torch.Tensor,
+                 sensor: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.folded is not None:
             return fused_backbone_forward(skeleton, self.folded)
         with full_float32():
@@ -251,7 +274,9 @@ def main(argv=None):
     ``--input`` is an .npz with ``skeleton`` (N,T,V,C) and, for the families
     that read it, ``sensor`` (N,T,S). ``--config`` names any preset of a
     registered family (e.g. ``default_urfall`` for the single-stream
-    ``stgcan``). ``--device cpu`` runs on the CPU; the default is the card.
+    ``stgcan``, ``musa_harup`` for a Gen-3 ``best_model.pt``).
+    ``--num-copies k`` serves the Gen-3 k-copies rule. ``--device cpu`` runs
+    on the CPU; the default is the card.
     """
     import argparse
     import csv
@@ -269,6 +294,9 @@ def main(argv=None):
                        help="reference checkpoint file (.pt/.pth/.npz)")
         s.add_argument("--batch-size", type=int, default=128)
         s.add_argument("--device", default="cuda")
+        s.add_argument("--num-copies", type=int, default=1,
+                       help="k-copies inference: mean logits of k time slices of each "
+                            "window (reference Multimodal_Fall3/main.py:150-161)")
 
     s = sub.add_parser("predict", help="batch inference over saved windows")
     common(s)
@@ -292,7 +320,7 @@ def main(argv=None):
                       else preset_path(args.config))
     pred = Predictor.from_torch_checkpoint(cfg, args.checkpoint,
                                            batch_size=args.batch_size,
-                                           device=args.device)
+                                           device=args.device, num_copies=args.num_copies)
     d = cfg.data
 
     if args.cmd == "predict":

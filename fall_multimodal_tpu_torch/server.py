@@ -259,6 +259,7 @@ class _Handler(BaseHTTPRequestHandler):
             "model": pred.config.model.name,
             "num_classes": pred.config.data.num_classes,
             "batch_size": pred.batch_size,
+            "num_copies": pred.num_copies,
             "requires_sensor": pred.requires_sensor,
             "batching": self.batcher.stats(),
         })

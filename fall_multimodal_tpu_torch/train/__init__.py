@@ -9,6 +9,7 @@ from fall_multimodal_tpu_torch.train.loop import (
     FitResult,
     evaluate,
     fit,
+    k_copies_logits,
     make_eval_epoch,
     make_train_epoch,
     make_train_step,
@@ -39,6 +40,7 @@ __all__ = [
     "cross_entropy_per_sample",
     "evaluate",
     "fit",
+    "k_copies_logits",
     "make_eval_epoch",
     "make_train_epoch",
     "make_train_step",

@@ -65,7 +65,8 @@ def make_train_step(
     augment_fn=None,
 ) -> Callable[[TrainState, DeviceData], Tuple[TrainState, Dict[str, Any]]]:
     """One optimizer step on the state's model and optimizer: forward in
-    train mode (batch statistics, dropout), loss, backward, clip, update.
+    train mode (batch statistics; dropout, DropGraph and stochastic depth
+    drawn from the state's generator), loss, backward, clip, update.
     Returns ``(state, {loss, accuracy[, grad_norms]})``; the state is
     updated in place and the metrics are device tensors.
 
@@ -82,7 +83,7 @@ def make_train_step(
             feats, sens = augment_fn(state.generator, feats, sens)
         with full_float32() if compute_dtype is None else contextlib.nullcontext():
             with _precision(compute_dtype, state.device):
-                logits = model(feats, sens)
+                logits = model(feats, sens, generator=state.generator)
             loss = cross_entropy(logits.float(), batch.labels,
                                  label_smoothing=label_smoothing,
                                  softmax_before_ce=softmax_before_ce)
@@ -201,9 +202,10 @@ class FitResult(NamedTuple):
 
 
 def epoch_seed(shuffle_seed: int, epoch: int) -> int:
-    """The generator's seed for one epoch: the shuffle and the augmentation
-    of epoch ``epoch`` depend on nothing else, so a resumed run repeats
-    them (the JAX package folds the epoch into its shuffle key)."""
+    """The generator's seed for one epoch: the shuffle, the augmentation and
+    the model's train-mode draws of epoch ``epoch`` depend on nothing else,
+    so a resumed run repeats them (the JAX package folds the epoch into its
+    shuffle key)."""
     return (int(shuffle_seed) * 1_000_003 + int(epoch)) % (2 ** 63)
 
 
@@ -328,3 +330,22 @@ def fit(
         test = evaluate(eval_epoch, best_state, splits["test"], batch_size)
     return FitResult(state=state, best_state=best_state, best_val_accuracy=best_acc,
                      history=history, test=test)
+
+
+def k_copies_logits(forward, skeleton: torch.Tensor, sensor: Optional[torch.Tensor],
+                    num_copies: int = 2) -> torch.Tensor:
+    """Strided-segment inference average (``Multimodal_Fall3/main.py:150-161``;
+    JAX ``train/loop.py:631-653``): the window is cut into ``num_copies``
+    contiguous time slices, ``forward(slice, sensor)`` runs on each (a
+    contiguous copy: the kernels take no strided input) and the logits are
+    averaged. T is axis 1. ``num_copies`` must lie in [1, T]; when it does
+    not divide T, the last T % num_copies frames are dropped, as the
+    reference's integer stride does. The sensor window is passed whole."""
+    t_len = skeleton.shape[1]
+    if not 1 <= num_copies <= t_len:
+        raise ValueError(f"num_copies={num_copies} must be between 1 and the window length "
+                         f"T={t_len} (stride = T // num_copies would be 0)")
+    stride = t_len // num_copies
+    outs = [forward(skeleton[:, j * stride:(j + 1) * stride].contiguous(), sensor)
+            for j in range(num_copies)]
+    return torch.stack(outs, dim=1).mean(dim=1)

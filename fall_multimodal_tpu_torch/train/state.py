@@ -24,7 +24,9 @@ class TrainState:
     model: nn.Module
     optimizer: Optimizer           # bound to ``model``'s parameters
     step: int                      # micro-steps taken (train-step calls)
-    generator: torch.Generator     # shuffles and augmentation, on the model's device
+    # every draw of a run, on the model's device: shuffles, augmentation and
+    # the model's own train-mode draws (dropout, DropGraph, stochastic depth)
+    generator: torch.Generator
 
     @property
     def device(self) -> torch.device:
@@ -55,9 +57,11 @@ def create_train_state(
     "init_param" (the reference's ``musa_model.py:408-420`` helper) or
     "flax" (the JAX package's flax defaults); each draws from generators
     seeded by ``seed`` (:func:`~fall_multimodal_tpu_torch.models.init.
-    reinitialize`). Dropout draws from torch's default generator, which is
-    seeded with ``seed`` here; shuffles and augmentation draw from the
-    state's own generator on the device.
+    reinitialize`). Every later draw of the run (shuffles, augmentation, and
+    the model's dropout, DropGraph and stochastic depth, which the train step
+    passes the generator to) comes from the state's own generator on the
+    device, seeded with ``seed``; nothing draws from torch's global
+    generator, so a state snapshot repeats its steps exactly.
     """
     from fall_multimodal_tpu_torch.models import build_model
     from fall_multimodal_tpu_torch.models.init import reinitialize
@@ -67,7 +71,6 @@ def create_train_state(
     if isinstance(model, Config):
         model = build_model(model)
     model = reinitialize(model, seed=seed, scheme=weight_init).to(dev)
-    torch.manual_seed(seed)
     generator = torch.Generator(dev).manual_seed(seed)
     return TrainState(model=model, optimizer=optimizer.init(model.parameters()),
                       step=0, generator=generator)

@@ -18,6 +18,7 @@ import torch
 from fall_multimodal_tpu_torch.configs import load_config, preset_path
 from fall_multimodal_tpu_torch.graphs import build_adjacency
 from fall_multimodal_tpu_torch.models import build_model
+from fall_multimodal_tpu_torch.models.init import seeded_model
 from fall_multimodal_tpu_torch.models.stgcan import STGCANBackbone, STGCANBlock
 from fall_multimodal_tpu_torch.ops.fused_backbone import FusedBackbone
 from fall_multimodal_tpu_torch.ops.fused_backbone_v2 import (
@@ -332,3 +333,80 @@ def test_trained_weights_serve_through_the_kernels(cuda_device, no_tf32, tmp_pat
             torch.from_numpy(data.features[:64]).to(cuda_device),
             torch.from_numpy(data.sensors[:64]).to(cuda_device)).cpu().numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
+
+
+# ------------------------------------------- Gen-3 / Gen-1 families, k-copies
+
+GEN3 = {"musa": ("musa_harup", None), "musa_ablation": ("musa_ablation_harup", None),
+        "targcn": ("targcn_harup", None),
+        "skeleton_transformer": ("skeleton_transformer_harup", None),
+        "skeleton_transformer_factorized": ("skeleton_transformer_harup",
+                                            "skeleton_transformer_factorized"),
+        "transformer_ensemble": ("transformer_ensemble_harup", None)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", list(GEN3))
+def test_gen3_family_on_the_card_matches_the_cpu(cuda_device, family):  # noqa: F811
+    """Each Gen-3 / Gen-1 family at its preset's full width (seeded weights,
+    running statistics from one train-mode pass), under PyTorch's default
+    TF32 flags: the card's ``Predictor`` against the CPU's at 1e-4, no
+    kernel launched (these families run as plain modules)."""
+    import dataclasses
+
+    preset, name = GEN3[family]
+    cfg = load_config(preset_path(preset))
+    if name:
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model, name=name))
+    sd = seeded_model(cfg).state_dict()
+    d = cfg.data
+    rng = np.random.default_rng(1)
+    skel = rng.normal(size=(16, d.seq_len, d.num_joints, d.in_channels)).astype(np.float32)
+    sens = rng.normal(size=(16, d.seq_len, d.sensor_dim)).astype(np.float32)
+    pred = Predictor(cfg, sd, batch_size=16, device=cuda_device)
+    sens = sens if pred.requires_sensor else None
+    fused_stgcan_block.launches = fused_backbone_forward.launches = 0
+    got = pred.predict_logits(skel, sens)
+    assert (fused_stgcan_block.launches, fused_backbone_forward.launches) == (0, 0)
+    want = Predictor(cfg, sd, batch_size=16, device="cpu").predict_logits(skel, sens)
+    assert np.isfinite(got).all() and np.ptp(want, axis=0).min() > 1e-3
+    np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset,k1,k2", [("gstcan_urfall_3stream", 28, 0),
+                                          ("default_urfall", 0, 2)])
+def test_k_copies_runs_the_kernels_at_t15(cuda_device, no_tf32, preset, k1, k2):  # noqa: F811
+    """``num_copies=2``: each T=15 slice of the window through the family's
+    kernels (14 block launches a slice for the flagship, one backbone launch
+    for ``stgcan``), the logits against the CPU Predictor's k-copies, and
+    every kernel at the slices' shapes (15 -> 8 -> 4 frames; the motion
+    stream 14 -> 7 -> 4) against its plain version."""
+    cfg = load_config(preset_path(preset))
+    torch.manual_seed(0)
+    sd = _scaled(build_model(cfg), 0).state_dict()
+    d = cfg.data
+    rng = np.random.default_rng(2)
+    skel = rng.normal(size=(8, d.seq_len, d.num_joints, d.in_channels)).astype(np.float32)
+    sens = rng.normal(size=(8, d.seq_len, d.sensor_dim)).astype(np.float32)
+    pred = Predictor(cfg, sd, batch_size=8, device=cuda_device, num_copies=2)
+    sens = sens if pred.requires_sensor else None
+    fused_stgcan_block.launches = fused_backbone_forward.launches = 0
+    got = pred.predict_logits(skel, sens)
+    assert (fused_stgcan_block.launches, fused_backbone_forward.launches) == (k1, k2)
+    want = Predictor(cfg, sd, batch_size=8, device="cpu", num_copies=2).predict_logits(
+        skel, sens)
+    np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
+    x = torch.from_numpy(skel[:, :15].copy()).to(cuda_device)
+    if pred.folded is not None:
+        torch.testing.assert_close(fused_backbone_forward(x, pred.folded),
+                                   fused_backbone_reference(x, pred.folded), rtol=0, atol=TOL)
+        return
+    for fb, t in ((pred.pts_fb, 15), (pred.mot_fb, 14)):
+        for folded, stride, mode in fb.blocks:
+            xb = torch.randn((8, t, 14, folded.gcn_w.shape[0]),
+                             generator=torch.Generator().manual_seed(t)).to(cuda_device)
+            torch.testing.assert_close(fused_stgcan_block(xb, folded, stride, mode),
+                                       stgcan_block_reference(xb, folded, stride, mode),
+                                       rtol=0, atol=TOL)
+            t = (t - 1) // stride + 1

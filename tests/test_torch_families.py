@@ -90,14 +90,28 @@ def _carry(preset, name=None, narrow=False, seed=3, n=5):
 
 
 def test_registry_lists_the_families():
+    from fall_multimodal_tpu.models import model_names as jax_model_names
+    from fall_multimodal_tpu.models import uses_sensor as jax_uses_sensor
+
     assert set(model_names()) == {"stgcan", "stgcn", "two_stgcan", "two_stgcan_bilstm",
-                                  "gstcan_3stream", "bilstm", "cnn_bilstm"}
-    assert not any(uses_sensor(n) for n in ("stgcan", "stgcn", "two_stgcan"))
+                                  "gstcan_3stream", "bilstm", "cnn_bilstm", "musa",
+                                  "musa_ablation", "targcn", "skeleton_transformer",
+                                  "skeleton_transformer_factorized", "transformer_ensemble"}
+    assert set(model_names()) == set(jax_model_names())
+    assert all(uses_sensor(n) == jax_uses_sensor(n) for n in model_names())
+    assert not any(uses_sensor(n) for n in ("stgcan", "stgcn", "two_stgcan", "musa",
+                                            "targcn", "skeleton_transformer"))
     assert all(uses_sensor(n) for n in ("two_stgcan_bilstm", "gstcan_3stream", "bilstm",
-                                        "cnn_bilstm"))
+                                        "cnn_bilstm", "transformer_ensemble"))
 
 
-@pytest.mark.parametrize("preset", sorted({p for p, _, _ in FAMILIES.values()}))
+# the Gen-3 and Gen-1 families' presets (their models: tests/test_torch_gen3_models.py)
+GEN3_PRESETS = ("musa_harup", "musa_ablation_harup", "musa_fukinect", "musa_imvia",
+                "targcn_harup", "skeleton_transformer_harup", "transformer_ensemble_harup")
+
+
+@pytest.mark.parametrize("preset", sorted({p for p, _, _ in FAMILIES.values()}
+                                          | set(GEN3_PRESETS)))
 def test_preset_copies_are_in_step(preset):
     with open(jax_preset_path(preset)) as a, open(preset_path(preset)) as b:
         assert a.read() == b.read()

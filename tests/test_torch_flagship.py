@@ -55,7 +55,9 @@ def fixture():
 def test_fixture_loads_strict_and_matches_reference(fixture):
     skel, sensor, expected, sd, g = fixture
     # the loader drops exactly the reference's dead CNN1D head, nothing else
-    assert set(g.files) - set(sd) == {"x", "sensor", "out", *DEAD_REFERENCE_KEYS}
+    dead = {"sensor.cnn.fc.weight", "sensor.cnn.fc.bias"}
+    assert set(g.files) - set(sd) == {"x", "sensor", "out", *dead}
+    assert dead <= set(DEAD_REFERENCE_KEYS)
     cfg = load_config(CFG)
     model = build_model(cfg).eval()
     model.load_state_dict({k: torch.as_tensor(v) for k, v in sd.items()}, strict=True)
