@@ -32,7 +32,17 @@ push latency (8b); k-copies inference (``num_copies=2``) through the
 kernels at T=15, held against the plain versions (8c); ``run_fold`` of
 ``musa_harup`` and ``targcn_harup`` served from their best checkpoints, and
 train windows/s of three families (8d); printed as a ``{"families": [...]}``
-line. Any failed check raises.
+line. Phase 9 runs the cross-validation path through the trainer's and the
+server's CLIs in-process at full preset width: ``--cv`` of the flagship (3
+folds x 2 epochs) and of ``stgcan`` (2 x 1) on 1,024 synthetic windows,
+each fold's ``best`` directory served by ``Predictor.from_checkpoint``
+through K1 (14 launches) / K2 (1) and held against the trainer's eval
+forward; a ``musa_harup`` ``--grid``; a CSV tree read by the Gen-3 loader
+through the native slicer, built here and held against the numpy slicer;
+``serve predict`` from ``.npy``, ``.npz`` and pickle input; ``serve export``
+of the flagship at batch 128, the loaded program against the Predictor
+under the default TF32 flags; printed as a ``{"cv": [...]}`` line.
+Any failed check raises.
 The second-to-last line is a JSON object describing each kernel; the last
 line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -41,6 +51,7 @@ Imports nothing of JAX.
 
 from __future__ import annotations
 
+import csv
 import dataclasses
 import json
 import os
@@ -53,10 +64,15 @@ import urllib.request
 import numpy as np
 import torch
 
+from fall_multimodal_tpu_torch import cli as train_cli
+from fall_multimodal_tpu_torch import serve as serve_cli
 from fall_multimodal_tpu_torch.configs import load_config, preset_path
 from fall_multimodal_tpu_torch.data import (
     epoch_batch_indices,
     gather_batch,
+    kfold_datasets,
+    load_csv_windows,
+    load_dataset,
     make_synthetic,
     split_dataset,
     to_device,
@@ -80,6 +96,7 @@ from fall_multimodal_tpu_torch.ops.stgcan_block import (
 from fall_multimodal_tpu_torch.serve import (
     Predictor,
     StreamingClassifier,
+    load_pt2,
     measure_push_latency,
 )
 from fall_multimodal_tpu_torch.server import PredictionServer
@@ -627,6 +644,251 @@ def train_families(dev, card):
     return served, rows
 
 
+# ---- phase 9: k-fold CV, grid search, CSV loading, the serving CLI, export ----
+
+CV_WINDOWS = 1024
+
+
+def cv_run(preset, folds, epochs, out, dev, k1_per_forward, k2_per_forward):
+    """Phases 9a, 9b: ``cli.main --cv`` on CV_WINDOWS synthetic windows at the
+    preset's full width and batch; the CLI's files checked; each fold's
+    ``best`` served by ``Predictor.from_checkpoint`` with its launches counted
+    over one batch-128 forward (counts set to 0 just before, read just after)
+    and held at MODEL_TOL against the trainer's own eval forward of that
+    state (``Checkpointer.restore`` into a train state, plain modules, full
+    float32). Returns the row of timings and errors."""
+    cfg = load_config(preset_path(preset))
+    d = cfg.data
+    t0 = time.perf_counter()
+    res = train_cli.main(["--config", preset, "--cv", "--folds", str(folds), "--epochs",
+                          str(epochs), "--synthetic-windows", str(CV_WINDOWS),
+                          "--output-dir", out])
+    torch.cuda.synchronize()
+    cv_s = time.perf_counter() - t0
+    with open(os.path.join(out, "cv_results.json")) as fh:
+        if json.load(fh)["summary"] != res["summary"] or len(res["folds"]) != folds:
+            raise AssertionError(f"{preset}: cv_results.json disagrees with the run")
+    data = load_dataset(d.dataset, seq_len=d.seq_len, num_joints=d.num_joints,
+                        num_classes=d.num_classes, sensor_dim=d.sensor_dim, seed=cfg.seed,
+                        n_windows=CV_WINDOWS)
+    b = cfg.train.batch_size
+    n_train = [len(f["train"]) // b * b if cfg.train.drop_last else len(f["train"])
+               for f in kfold_datasets(data, n_folds=folds, seed=cfg.seed,
+                                       by_video=d.split_by_video, stratify=d.stratify_folds)]
+    skel, sens = data.features[:BATCH], data.sensors[:BATCH]
+    epoch_s, errs, launches = [], [], []
+    for i in range(folds):
+        with open(os.path.join(out, f"fold{i}", "history.csv")) as fh:
+            hist = list(csv.DictReader(fh))
+        for name in ("best", "latest"):
+            if not os.path.exists(os.path.join(out, "ckpt", f"fold{i}", name, "checkpoint.pt")):
+                raise AssertionError(f"{preset}: fold {i} wrote no {name} checkpoint")
+        if len(hist) != epochs or not all(np.isfinite(float(r["train_loss"])) for r in hist):
+            raise AssertionError(f"{preset}: fold {i} history.csv {hist}")
+        epoch_s.append(sum(float(r["epoch_time"]) for r in hist))
+        fold_dir = os.path.join(out, "ckpt", f"fold{i}")
+        pred = Predictor.from_checkpoint(cfg, fold_dir, which="best", batch_size=BATCH,
+                                         device=dev)
+        fused_stgcan_block.launches = fused_backbone_forward.launches = 0
+        logits = pred.predict_logits(skel, sens if pred.requires_sensor else None)
+        launches.append([fused_stgcan_block.launches, fused_backbone_forward.launches])
+        state = create_train_state(cfg, build_optimizer(cfg), seed=SEED, device=dev)
+        state, _, _ = Checkpointer(fold_dir).restore("best", state)
+        with torch.no_grad(), full_float32():
+            ref = state.model.eval()(torch.from_numpy(skel).to(dev),
+                                     torch.from_numpy(sens).to(dev)).cpu().numpy()
+        errs.append(float(np.abs(logits - ref).max()))
+        if launches[-1] != [k1_per_forward, k2_per_forward] or not errs[-1] <= MODEL_TOL \
+                or not np.isfinite(logits).all():
+            raise AssertionError(f"{preset}: fold {i} best served through {launches[-1]} "
+                                 f"launches, off the trainer's forward by {errs[-1]}")
+    windows_per_s = sum(n * epochs for n in n_train) / sum(epoch_s)
+    log(f"9: {preset} --cv --folds {folds} --epochs {epochs}, {CV_WINDOWS} windows, batch "
+        f"{cfg.train.batch_size}: {cv_s:.2f} s ({cv_s / folds:.2f} s a fold), "
+        f"{windows_per_s:.1f} train windows/s of epoch time; test acc "
+        f"{[round(r['test_accuracy'], 4) for r in res['folds']]}; each fold's best served "
+        f"through {launches} (stgcan_block, fused_backbone) launches, vs the trainer's eval "
+        f"forward max_abs_err {errs}")
+    return {"preset": preset, "folds": folds, "epochs": epochs, "windows": CV_WINDOWS,
+            "batch": cfg.train.batch_size, "cv_s": cv_s, "s_per_fold": cv_s / folds,
+            "epoch_s": epoch_s, "train_windows_per_s": windows_per_s,
+            "summary": res["summary"], "launches": launches, "max_abs_err": errs}
+
+
+def csv_tree_check(root):
+    """Phase 9d: a Gen-3 CSV tree (100 videos x 300 frames, 13 joints, one
+    NaN cell in every tenth video, rows shuffled within each file) written
+    here and read by ``load_csv_windows`` through the native slicer, which
+    must be built; held exactly against the numpy slicer on the same table,
+    sorted as the loader sorts it."""
+    from fall_multimodal_tpu_torch.data import native
+    from fall_multimodal_tpu_torch.data.preprocess import add_center_joint, scale_pose
+
+    rng = np.random.default_rng(SEED)
+    cols = [f"j{j}_{a}" for j in range(13) for a in ("x", "y", "s")]
+    classes = ["fall", "lie", "sit", "walk"]
+    tables, labels, codes = [], [], []
+    for v in range(100):
+        vals = np.float32(np.round(rng.random((300, len(cols))), 6))
+        if v % 10 == 3:
+            vals[150, 5] = np.nan
+        lab = rng.integers(0, 4, 300 // 30).repeat(30)
+        path = os.path.join(root, f"subject{v % 17}", f"video{v:03d}.csv")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as fh:
+            fh.write(",".join(["video", "frame"] + cols + ["label"]) + "\n")
+            for f in rng.permutation(300):
+                fh.write(",".join([f"video{v:03d}", str(f)] + [repr(float(x)) for x in vals[f]]
+                                  + [classes[lab[f]]]) + "\n")
+        tables.append(vals)
+        labels.append(np.eye(4, dtype=np.float32)[lab])
+        codes.append(np.full(300, v, np.int64))
+    table, labs, codes = np.concatenate(tables), np.concatenate(labels), np.concatenate(codes)
+    t0 = time.perf_counter()
+    data = load_csv_windows(root, seq_len=30)
+    load_s = time.perf_counter() - t0
+    built = native.native_available()
+    windows, starts = native.slice_windows_numpy(table, codes, 30)
+    feats = windows.reshape(-1, 30, 13, 3).copy()
+    feats[..., :2] = scale_pose(feats[..., :2])
+    want = add_center_joint(feats)
+    same = (built and data.features.shape == want.shape
+            and np.array_equal(data.features, want)
+            and np.array_equal(data.labels, native.window_mean_labels(labs, starts, 30))
+            and data.videos.tolist() == [f"video{c:03d}" for c in codes[starts]])
+    log(f"9d: CSV tree of {len(table)} rows in 100 files -> {len(data)} windows in "
+        f"{load_s:.3f} s ({len(table) / load_s:.0f} rows/s); native slicer built: {built} "
+        f"({native.library_path()}); equal to the numpy slicer: {same}")
+    if not same:
+        raise AssertionError("the CSV loader with the native slicer disagrees with the numpy "
+                             "slicer, or the native slicer was not built")
+    return {"rows": len(table), "windows": len(data), "load_s": load_s, "native": built}
+
+
+def serve_cli_check(out, dev):
+    """Phase 9e: ``serve predict`` on the ``stgcan`` run's ``ckpt/fold0 --which
+    best`` from an ``.npy``, an ``.npz`` and a prep-pipeline pickle of the same
+    windows: equal predictions, equal to the Predictor's probabilities."""
+    import pickle
+
+    cfg = load_config(preset_path("default_urfall"))
+    d = cfg.data
+    data = make_synthetic(n_windows=300, num_classes=d.num_classes, sensor_dim=d.sensor_dim,
+                          seed=SEED + 1)
+    np.save(os.path.join(out, "x.npy"), data.features)
+    np.savez(os.path.join(out, "x.npz"), skeleton=data.features)
+    with open(os.path.join(out, "x.pkl"), "wb") as fh:
+        pickle.dump((data.videos, data.features, data.labels), fh)
+    fold = os.path.join(out, "ckpt", "fold0")
+    tables = []
+    for name in ("x.npy", "x.npz", "x.pkl"):
+        csv_out = os.path.join(out, f"{name}.csv")
+        serve_cli.main(["predict", "--config", "default_urfall", "--checkpoint", fold,
+                        "--which", "best", "--input", os.path.join(out, name), "--output",
+                        csv_out, "--proba"])
+        with open(csv_out) as fh:
+            tables.append(np.asarray([[float(x) for x in row[1:]]
+                                      for row in list(csv.reader(fh))[1:]]))
+    want = Predictor.from_checkpoint(cfg, fold, device=dev).predict_proba(data.features)
+    err = float(np.abs(tables[0][:, 1:] - want).max())
+    same = all(np.array_equal(tables[0], t) for t in tables[1:])
+    log(f"9e: serve predict --checkpoint ckpt/fold0 --which best from .npy/.npz/pickle: "
+        f"{len(tables[0])} windows, predictions equal: {same}; probabilities vs the "
+        f"Predictor max_abs_err={err:.3e}")
+    if not same or not err <= 1e-6 or not np.array_equal(tables[0][:, 0], want.argmax(-1)):
+        raise AssertionError(f"serve predict disagrees across input formats ({same}, {err})")
+    return {"windows": len(tables[0]), "inputs": ["npy", "npz", "pickle"], "max_abs_err": err}
+
+
+def export_check(out, dev, defaults):
+    """Phase 9f: the flagship's fold-0 ``best`` exported by ``serve export`` at
+    batch 128 on the card; the loaded callable under PyTorch's default TF32
+    flags against the Predictor's logits at MODEL_TOL; serving windows/s of
+    the fold checkpoint through the Predictor (host clock, 1,024 windows a
+    call)."""
+    cfg = load_config(preset_path("gstcan_urfall_3stream"))
+    d = cfg.data
+    fold = os.path.join(out, "ckpt", "fold0")
+    path = os.path.join(out, "model.pt2")
+    t0 = time.perf_counter()
+    serve_cli.main(["export", "--config", "gstcan_urfall_3stream", "--checkpoint", fold,
+                    "--output", path, "--batch-size", str(BATCH)])
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with open(path, "rb") as fh:
+        forward = load_pt2(fh.read())
+    load_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 2)
+    skel = rng.normal(size=(1024, d.seq_len, d.num_joints, d.in_channels)).astype(np.float32)
+    sens = rng.normal(size=(1024, d.seq_len, d.sensor_dim)).astype(np.float32)
+    pred = Predictor.from_checkpoint(cfg, fold, batch_size=BATCH, device=dev)
+    want = pred.predict_logits(skel[:BATCH], sens[:BATCH])
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = defaults
+    try:
+        got = forward(torch.from_numpy(skel[:BATCH]).to(dev),
+                      torch.from_numpy(sens[:BATCH]).to(dev)).cpu().numpy()
+        after = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    err = float(np.abs(got - want).max())
+    with torch.no_grad(), full_float32():
+        plain = pred.model(torch.from_numpy(skel[:BATCH]).to(dev),
+                           torch.from_numpy(sens[:BATCH]).to(dev)).cpu().numpy()
+    err_plain = float(np.abs(got - plain).max())
+    pred.predict_logits(skel, sens)
+    reps = 5
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        pred.predict_logits(skel, sens)
+    serve_wps = reps * len(skel) / (time.perf_counter() - t0)
+    log(f"9f: export of the flagship's fold-0 best at batch {BATCH} in {export_s:.2f} s "
+        f"({os.path.getsize(path)} bytes), load {load_s:.2f} s; exported logits under the "
+        f"default flags {defaults} (after: {after}) vs the Predictor max_abs_err={err:.3e}, "
+        f"vs the plain eval forward in full float32 {err_plain:.3e} (|logits| max "
+        f"{np.abs(want).max():.3f}); serving from the fold checkpoint {serve_wps:.0f} "
+        f"windows/s")
+    if not err <= MODEL_TOL or after != defaults:
+        raise AssertionError(f"exported forward off the Predictor by {err}")
+    return {"export_s": export_s, "load_s": load_s, "bytes": os.path.getsize(path),
+            "max_abs_err": err, "max_abs_err_vs_plain": err_plain,
+            "logits_abs_max": float(np.abs(want).max()), "serve_windows_per_s": serve_wps}
+
+
+def cv_phase(dev, defaults, card):
+    """Phase 9: the CV protocol's path on the card through the CLIs."""
+    root = os.path.join(ROOT, "outputs", "chip_smoke", "cv")
+    shutil.rmtree(root, ignore_errors=True)
+    t9 = time.perf_counter()
+    flagship = cv_run("gstcan_urfall_3stream", 3, 2, os.path.join(root, "gstcan"), dev,
+                      k1_per_forward=14, k2_per_forward=0)
+    stgcan_out = os.path.join(root, "stgcan")
+    stgcan = cv_run("default_urfall", 2, 1, stgcan_out, dev, k1_per_forward=0,
+                    k2_per_forward=1)
+    grid_out = os.path.join(root, "grid")
+    t0 = time.perf_counter()
+    train_cli.main(["--config", "musa_harup", "--grid", '{"embed_dim": [32, 64]}',
+                    "--epochs", "1", "--synthetic-windows", str(CV_WINDOWS),
+                    "--output-dir", grid_out])
+    grid_s = time.perf_counter() - t0
+    with open(os.path.join(grid_out, "grid_results.csv")) as fh:
+        grid = list(csv.DictReader(fh))
+    log(f"9c: musa_harup --grid embed_dim [32, 64], 1 epoch, {CV_WINDOWS} windows in "
+        f"{grid_s:.2f} s: {grid}")
+    if [r["embed_dim"] for r in grid] != ["32", "64"] or sorted(r["rank"] for r in grid) \
+            != ["1", "2"]:
+        raise AssertionError(f"grid_results.csv: {grid}")
+    csv_tree = csv_tree_check(os.path.join(root, "csv_tree"))
+    served = serve_cli_check(stgcan_out, dev)
+    export = export_check(os.path.join(root, "gstcan"), dev, defaults)
+    phase_s = time.perf_counter() - t9
+    log(f"phase 9: {phase_s:.1f} s")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"cv": [flagship, stgcan], "grid": {"rows": grid, "s": grid_s},
+            "csv_tree": csv_tree, "serve_cli": served, "export": export,
+            "phase_s": phase_s, "card": card}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU", file=sys.stderr)
@@ -943,10 +1205,14 @@ def main() -> int:
     log(f"phase 8: {time.perf_counter() - t8:.1f} s")
     max_err, bb_err = max(max_err, k1_err_15), max(bb_err, k2_err_15)
 
+    # ---- phase 9: k-fold CV and grid search through the CLIs, folds served ----
+    cv_9 = cv_phase(dev, defaults, card)
+
     log(json.dumps({"train": train_rows, "steps_card_vs_cpu": train_7a,
                     "train_then_serve": train_7b}))
     log(json.dumps({"families": families_8b, "fixtures": fixtures_8a, "k_copies": k_copies_8c,
                     "train_then_serve": served_8d, "train": train_8d, "card": card}))
+    log(json.dumps(cv_9))
     log(json.dumps({"kernels": [{
         "name": "stgcan_block",
         "route": "cuda",

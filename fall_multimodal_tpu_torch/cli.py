@@ -1,30 +1,47 @@
-"""Command-line trainer of the port: the single-run path of the JAX
-package's ``cli.py`` (``_run_inner``, ``cli.py:239-256,371-428``).
+"""Command-line trainer of the port (counterpart of the JAX package's
+``cli.py``): a single run, k-fold cross-validation or a grid search.
 
     python -m fall_multimodal_tpu_torch.cli --config gstcan_urfall_3stream \\
         --set optim.lr=5e-4 --set train.epochs=50 --output-dir outputs/run1
+    python -m fall_multimodal_tpu_torch.cli --config gstcan_urfall_3stream --cv --folds 10
+    python -m fall_multimodal_tpu_torch.cli --config musa_harup --grid   # 48 points
     python -m fall_multimodal_tpu_torch.cli --config gstcan_urfall_3stream \\
         --device cpu --set train.epochs=1 --set train.batch_size=8 \\
         --synthetic-windows 64
 
 Trains on the card (``--device cuda``, the default) unless ``--device cpu``
-is passed, and writes under the output dir ``config.json``, ``log.txt``,
-``history.json`` (per-epoch curves), ``report.txt`` (classification report
-of the test split on the best state) and ``ckpt/{best,latest}/checkpoint.pt``
-(:mod:`fall_multimodal_tpu_torch.utils.checkpoint`; ``best`` serves through
-``python -m fall_multimodal_tpu_torch.serve ... --checkpoint
-<out>/ckpt/best/checkpoint.pt``). The output dir is never wiped, so
-``--resume <out>/ckpt`` continues a run at its saved epoch and
-``--test-only`` evaluates ``best``.
+is passed, and writes under the output dir ``config.json`` and ``log.txt``,
+and then:
 
-The JAX CLI's ``--cv``, ``--cv-vmapped``, ``--grid``, ``--mesh``,
-``--tensorboard``, ``--grad-norms``, ``--profile`` and ``--distributed`` are
-not offered yet.
+* a single run: ``history.json`` (per-epoch curves), ``report.txt``
+  (classification report of the test split on the best state) and
+  ``ckpt/{best,latest}/checkpoint.pt``
+  (:mod:`fall_multimodal_tpu_torch.utils.checkpoint`). The output dir is
+  never wiped, so ``--resume <out>/ckpt`` continues a run at its saved epoch
+  and ``--test-only`` evaluates ``best``;
+* ``--cv``: ``cv_results.json`` (per-fold rows and their mean/std),
+  ``fold{i}/history.csv`` and ``fold{i}/confusion.png`` (where matplotlib is
+  installed), and ``ckpt/fold{i}/{best,latest}``;
+* ``--grid``: ``grid_results.csv`` and ``grid_results.json``, one row per
+  point in grid order with a ``rank`` column.
+
+A fold's or a run's checkpoint directory serves through
+``python -m fall_multimodal_tpu_torch.serve predict --checkpoint <out>/ckpt/fold0
+--which best ...``. ``--tensorboard`` writes per-epoch scalars (tagged
+``fold{i}/`` under ``--cv``, ``point{i}/`` under ``--grid``) and
+``--grad-norms`` per-step gradient norms, both through
+``torch.utils.tensorboard`` (the ``tensorboard`` package must be
+installed); ``--profile`` writes a ``torch.profiler`` trace of the run to
+``<output-dir>/profile/trace.json``.
+
+The JAX CLI's ``--cv-vmapped``, ``--cv-mesh``, ``--mesh`` and
+``--distributed`` (fold-parallel CV and data parallelism) are not offered.
 """
 
 from __future__ import annotations
 
 import argparse
+import csv
 import dataclasses
 import json
 import math
@@ -40,8 +57,17 @@ def parse_args(argv=None):
     p.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
                    help="dotted config override, e.g. optim.lr=5e-4")
     p.add_argument("--output-dir", default=None)
+    p.add_argument("--cv", action="store_true", help="k-fold cross-validation")
+    p.add_argument("--folds", type=int, default=None,
+                   help="number of CV folds (default: the config's data.n_folds)")
+    p.add_argument("--grid", nargs="?", const="reference", default=None, metavar="JSON",
+                   help="hyperparameter grid search (reference hyperparameter_tuning.py). "
+                        "Bare --grid runs the 48-point embed_dim x n_stage x act_type "
+                        "space; or pass a JSON dict of lists, e.g. "
+                        '\'{"embed_dim": [16, 32]}\'. Writes grid_results.csv')
     p.add_argument("--epochs", type=int, default=None)
-    p.add_argument("--data-path", default=None, help="windowed dataset pickle")
+    p.add_argument("--data-path", default=None,
+                   help="dataset: a windowed pickle, or a directory of Gen-3 CSVs")
     p.add_argument("--test-only", action="store_true",
                    help="evaluate the best checkpoint (of --resume, else of "
                         "<output-dir>/ckpt) on the test split")
@@ -52,6 +78,14 @@ def parse_args(argv=None):
                         "file (.pt/.pth/.npz)")
     p.add_argument("--synthetic-windows", type=int, default=2048,
                    help="synthetic dataset size when no --data-path")
+    p.add_argument("--tensorboard", action="store_true",
+                   help="write per-epoch scalars via torch.utils.tensorboard")
+    p.add_argument("--grad-norms", action="store_true",
+                   help="also write per-parameter per-step gradient norms to TensorBoard "
+                        "(reference main.py:84-89; kept on the device, flushed per epoch)")
+    p.add_argument("--profile", action="store_true",
+                   help="write a torch.profiler trace of the run to "
+                        "<output-dir>/profile/trace.json")
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (default: the card)")
     return p.parse_args(argv)
@@ -89,22 +123,90 @@ def json_safe_history(hist):
             for k, series in hist.items()}
 
 
+def validate_args(args) -> None:
+    """Conflicts among the arguments fail before any data is loaded."""
+    multi_run = args.cv or bool(args.grid)
+    if multi_run and (args.resume or args.pretrained):
+        # retraining every fold from scratch while the user thinks they
+        # resumed is worse than refusing
+        raise SystemExit(
+            "--resume/--pretrained apply to the single-split path only; the CV and "
+            "grid drivers build fresh per-fold/per-point states (per-fold checkpoints "
+            "live under <output-dir>/ckpt/fold{i})")
+    if multi_run and args.test_only:
+        raise SystemExit(
+            "--test-only applies to the single-split path only; to re-evaluate a CV "
+            "fold, point --resume at its fold checkpoint dir without --cv")
+    if args.epochs is not None and args.epochs < 1:
+        raise SystemExit("--epochs must be >= 1")
+    if args.tensorboard or args.grad_norms:
+        try:
+            from torch.utils.tensorboard import SummaryWriter  # noqa: F401
+        except ImportError as e:
+            raise SystemExit(
+                "--tensorboard/--grad-norms write through torch.utils.tensorboard, which "
+                f"needs the 'tensorboard' package: it is not installed ({e})") from e
+
+
 def main(argv=None) -> Dict:
     from fall_multimodal_tpu_torch.utils.device import resolve_device
 
     args = parse_args(argv)
-    if args.epochs is not None and args.epochs < 1:
-        raise SystemExit("--epochs must be >= 1")
+    validate_args(args)
     device = resolve_device(args.device)        # no card and no --device cpu: raise now
     cfg = load_cli_config(args)
     out_dir = args.output_dir or os.path.join(
         "outputs", f"{cfg.model.name}_{time.strftime('%Y%m%dT%H%M%S')}")
     os.makedirs(out_dir, exist_ok=True)
+    if args.profile:
+        from fall_multimodal_tpu_torch.utils.profiling import trace
+
+        with trace(os.path.join(out_dir, "profile")):
+            return _run(args, cfg, out_dir, device)
     return _run(args, cfg, out_dir, device)
 
 
 def _run(args, cfg, out_dir, device) -> Dict:
+    # buffered TensorBoard events reach the disk only when the writer is closed
+    holder = {}
+    try:
+        return _run_inner(args, cfg, out_dir, device, holder)
+    finally:
+        if holder.get("writer") is not None:
+            holder["writer"].close()
+
+
+def _scalar_callbacks(args, out_dir, holder):
+    """``(metrics_callback, metrics_factory, step_metrics_callback,
+    step_metrics_factory)`` writing TensorBoard scalars (reference
+    SummaryWriter, ``main.py:146-148``; per-step gradient norms,
+    ``main.py:84-89``); the factories tag fold ``i`` ``fold{i}/`` and grid
+    point ``i`` ``point{i}/``. All None without ``--tensorboard`` and
+    ``--grad-norms``."""
+    if not (args.tensorboard or args.grad_norms):
+        return None, None, None, None
+    from torch.utils.tensorboard import SummaryWriter
+
+    writer = holder["writer"] = SummaryWriter(log_dir=out_dir)
+    tag_prefix = "point" if args.grid else "fold"
+
+    def write(prefix):
+        def cb(step, scalars):
+            for name, value in scalars.items():
+                writer.add_scalar(prefix + name, value, step)
+        return cb
+
+    def tagged(i):
+        return write(f"{tag_prefix}{i}/")
+
+    if args.grad_norms:
+        return write(""), tagged, write(""), tagged
+    return write(""), tagged, None, None
+
+
+def _run_inner(args, cfg, out_dir, device, holder) -> Dict:
     from fall_multimodal_tpu_torch.data import load_dataset, split_dataset, to_device
+    from fall_multimodal_tpu_torch.models import build_model
     from fall_multimodal_tpu_torch.train import (
         build_optimizer,
         classification_report,
@@ -113,9 +215,15 @@ def _run(args, cfg, out_dir, device) -> Dict:
         make_eval_epoch,
         param_count,
     )
-    from fall_multimodal_tpu_torch.train.cv import run_fold
+    from fall_multimodal_tpu_torch.train.cv import (
+        cross_validate,
+        grid_search,
+        reference_grid,
+        run_fold,
+    )
     from fall_multimodal_tpu_torch.utils import create_logger
     from fall_multimodal_tpu_torch.utils.checkpoint import Checkpointer
+    from fall_multimodal_tpu_torch.utils.profiling import model_summary
 
     logger = create_logger(output_dir=out_dir, name="fall_multimodal_tpu_torch.cli")
     logger.info(f"config: {cfg.model.name} dataset={cfg.data.dataset} device={device}")
@@ -132,6 +240,46 @@ def _run(args, cfg, out_dir, device) -> Dict:
     logger.info(f"dataset: {len(data)} windows, {data.num_classes} classes")
     with open(os.path.join(out_dir, "config.json"), "w") as fh:
         json.dump(cfg.to_dict(), fh, indent=2, default=str)
+    # the parameter table at the start of a run (the reference runs
+    # torchinfo.summary before training, Multimodal_Fall3/main.py:326-328)
+    logger.info("model summary:\n" + model_summary(build_model(cfg)))
+    metrics_callback, metrics_factory, step_metrics_callback, step_metrics_factory = \
+        _scalar_callbacks(args, out_dir, holder)
+
+    if args.grid:
+        grid = reference_grid() if args.grid == "reference" else json.loads(args.grid)
+        if not isinstance(grid, dict) or not all(isinstance(v, (list, tuple))
+                                                 for v in grid.values()):
+            raise SystemExit("--grid expects a JSON dict of lists, "
+                             'e.g. \'{"embed_dim": [16, 32]}\'')
+        empty = [k for k, v in grid.items() if not list(v)]
+        if not grid or empty:
+            raise SystemExit("--grid needs a non-empty dict of non-empty lists"
+                             + (f"; empty values for {', '.join(empty)}" if empty else ""))
+        rows = grid_search(cfg, data, grid, epochs=args.epochs, logger=logger,
+                           grad_norms=args.grad_norms, metrics_factory=metrics_factory,
+                           step_metrics_factory=step_metrics_factory, device=device)
+        # one row per point in grid order (the reference's accumulation order,
+        # hyperparameter_tuning.py:466-471), ranked in a column
+        with open(os.path.join(out_dir, "grid_results.csv"), "w", newline="") as fh:
+            csv_writer = csv.DictWriter(fh, fieldnames=list(rows[0]))
+            csv_writer.writeheader()
+            csv_writer.writerows(rows)
+        with open(os.path.join(out_dir, "grid_results.json"), "w") as fh:
+            json.dump(rows, fh, indent=2)
+        logger.info(f"best grid point: {min(rows, key=lambda r: r['rank'])}")
+        return {"grid": rows}
+
+    if args.cv:
+        results = cross_validate(cfg, data, n_folds=args.folds, epochs=args.epochs,
+                                 logger=logger, checkpoint_dir=os.path.join(out_dir, "ckpt"),
+                                 artifacts_dir=out_dir, grad_norms=args.grad_norms,
+                                 metrics_factory=metrics_factory,
+                                 step_metrics_factory=step_metrics_factory, device=device)
+        with open(os.path.join(out_dir, "cv_results.json"), "w") as fh:
+            json.dump(results, fh, indent=2)
+        logger.info(f"CV summary: {results['summary']}")
+        return results
 
     splits_np = split_dataset(data, split=cfg.data.split, seed=cfg.seed,
                               by_video=cfg.data.split_by_video)
@@ -154,8 +302,11 @@ def _run(args, cfg, out_dir, device) -> Dict:
         return {"test_accuracy": test.accuracy}
 
     result = run_fold(cfg, splits, epochs=args.epochs, logger=logger, checkpointer=ckpt,
+                      metrics_callback=metrics_callback,
                       resume_from=args.resume or cfg.resume_from,
                       pretrained_path=args.pretrained or cfg.pretrained_weight_path,
+                      grad_norms=args.grad_norms,
+                      step_metrics_callback=step_metrics_callback,
                       device=device)
     logger.info(f"{param_count(result.state):,} trainable parameters")
     logger.info(f"best val accuracy {result.best_val_accuracy:.5f}; "

@@ -1,4 +1,6 @@
 from fall_multimodal_tpu_torch.data.loaders import (
+    kfold_datasets,
+    load_csv_windows,
     load_dataset,
     load_pickle_windows,
     split_dataset,
@@ -38,7 +40,9 @@ __all__ = [
     "eval_batch_indices",
     "eval_batch_mask",
     "gather_batch",
+    "kfold_datasets",
     "kfold_indices",
+    "load_csv_windows",
     "load_dataset",
     "load_pickle_windows",
     "make_synthetic",

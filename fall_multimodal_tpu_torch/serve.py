@@ -15,9 +15,16 @@ Counterpart of ``fall_multimodal_tpu/serve.py``:
   ``num_copies`` > 1 it averages the logits of k time slices of each window
   (:func:`~fall_multimodal_tpu_torch.train.loop.k_copies_logits`), each
   slice through the same kernels;
+* :func:`checkpoint_state_dict` — the weights of a checkpoint directory
+  the port's trainer wrote (``best`` or ``latest``);
+* :func:`export_pt2` / :func:`load_pt2` — the plain eval forward saved as a
+  ``torch.export`` program (``.pt2``) at a fixed batch, and loaded back as a
+  callable (the JAX package exports its plain ``model.apply`` the same way,
+  not the kernel path);
 * :class:`StreamingClassifier` — online sliding-window inference over a
   live pose/sensor stream;
-* :func:`measure_push_latency` and the ``predict | latency | serve`` CLI.
+* :func:`measure_push_latency` and the ``predict | latency | export | serve``
+  CLI.
 
 Everything runs on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; with no card and no explicit CPU request it raises.
@@ -33,7 +40,9 @@ switches TF32 off for the call and puts the caller's settings back.
 from __future__ import annotations
 
 import copy
-from typing import Any, Dict, Mapping, Optional
+import io
+import os
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -99,9 +108,29 @@ class Predictor:
         return other
 
     @classmethod
-    def from_torch_checkpoint(cls, config: Config, path: str, **kwargs) -> "Predictor":
-        """Serve a reference checkpoint file (``.pt``/``.pth``/``.npz``)."""
-        return cls(config, load_state_dict_file(path), **kwargs)
+    def from_checkpoint(cls, config: Config, checkpoint_dir: str, which: str = "best",
+                        **kwargs) -> "Predictor":
+        """Serve the model weights of a checkpoint directory the port's
+        trainer wrote (``<out>/ckpt`` of a run, ``<out>/ckpt/fold{i}`` of a
+        CV fold): ``which`` is ``"best"`` or ``"latest"``, read through
+        :meth:`~fall_multimodal_tpu_torch.utils.checkpoint.Checkpointer.file`
+        (its ``.prev`` copy after a crash inside a save). Only the weights
+        are read; no optimizer or train state is built."""
+        device = kwargs["device"] = resolve_device(kwargs.get("device", "cuda"))
+        return cls(config, checkpoint_state_dict(checkpoint_dir, which, device), **kwargs)
+
+    @classmethod
+    def from_torch_checkpoint(cls, config: Config, path: str, strict: bool = True,
+                              **kwargs) -> "Predictor":
+        """Serve a reference checkpoint file (``.pt``/``.pth``/``.npz``).
+        ``strict=False`` ignores the file's keys that the model does not
+        have (as the JAX package's ``torch_to_variables``); a missing or
+        mis-shaped key is an error either way."""
+        state_dict = load_state_dict_file(path)
+        if not strict:
+            want = build_model(config).state_dict()
+            state_dict = {k: v for k, v in state_dict.items() if k in want}
+        return cls(config, state_dict, **kwargs)
 
     def forward(self, skeleton: torch.Tensor,
                 sensor: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -163,6 +192,58 @@ class Predictor:
 
     def predict(self, skeleton, sensor=None) -> np.ndarray:
         return self.predict_logits(skeleton, sensor).argmax(-1)
+
+
+def checkpoint_state_dict(checkpoint_dir: str, which: str = "best",
+                          device="cuda") -> Dict[str, torch.Tensor]:
+    """The model weights of a checkpoint directory the port's trainer wrote,
+    loaded onto ``device``: ``which`` is ``"best"`` or ``"latest"``, read
+    through :meth:`~fall_multimodal_tpu_torch.utils.checkpoint.Checkpointer.file`
+    (its ``.prev`` copy after a crash inside a save)."""
+    from fall_multimodal_tpu_torch.utils.checkpoint import Checkpointer
+
+    if which not in ("best", "latest"):
+        raise ValueError(f"which={which!r}: a checkpoint directory holds 'best' and "
+                         "'latest'")
+    if not os.path.isdir(checkpoint_dir):
+        raise FileNotFoundError(f"no checkpoint directory {checkpoint_dir!r}")
+    path = Checkpointer(checkpoint_dir).file(which)
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"{checkpoint_dir!r} holds no {which!r} checkpoint")
+    payload = torch.load(path, map_location=resolve_device(device), weights_only=True)
+    return payload["model"]
+
+
+def export_pt2(config: Config, state_dict: Mapping[str, Any],
+               skeleton_shape: Tuple[int, ...], sensor_shape: Tuple[int, ...],
+               device="cuda") -> bytes:
+    """The plain eval forward of ``config``'s model holding ``state_dict``,
+    exported by ``torch.export`` at fixed input shapes on ``device`` and
+    serialised as ``.pt2`` bytes (weights included). The kernels are not in
+    the program: it runs the model's own modules, as the JAX package's
+    ``export_stablehlo`` exports its plain ``model.apply``."""
+    dev = resolve_device(device)
+    model = load_into(build_model(config), state_dict).to(dev).eval()
+    args = (torch.zeros(skeleton_shape, device=dev), torch.zeros(sensor_shape, device=dev))
+    with torch.no_grad():
+        program = torch.export.export(model, args)
+    buf = io.BytesIO()
+    torch.export.save(program, buf)
+    return buf.getvalue()
+
+
+def load_pt2(blob: bytes) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
+    """The forward of :func:`export_pt2`'s bytes as a callable
+    ``(skeleton, sensor) -> logits`` on the device it was exported on. It
+    runs in full float32 (:func:`full_float32`) whatever the process-wide
+    TF32 switches say, as :meth:`Predictor.forward` does."""
+    module = torch.export.load(io.BytesIO(blob)).module()
+
+    def forward(skeleton: torch.Tensor, sensor: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad(), full_float32():
+            return module(skeleton, sensor)
+
+    return forward
 
 
 class StreamingClassifier:
@@ -258,30 +339,54 @@ def measure_push_latency(classifier: StreamingClassifier, n_pushes: int = 200,
     }
 
 
+def load_input(path: str) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+    """``(skeleton, sensor or None)`` windows of a ``predict --input`` file:
+    an ``.npz`` with ``skeleton`` (N,T,V,C) [and ``sensor`` (N,T,S)], a bare
+    ``.npy`` of skeleton windows, or a prep-pipeline pickle
+    (:func:`~fall_multimodal_tpu_torch.data.loaders.load_pickle_windows`;
+    pickles run code when read: load only files this pipeline wrote)."""
+    if path.endswith(".npz"):
+        with np.load(path) as blob:
+            return blob["skeleton"], (blob["sensor"] if "sensor" in blob.files else None)
+    if path.endswith(".npy"):
+        return np.load(path), None
+    from fall_multimodal_tpu_torch.data import load_pickle_windows
+
+    data = load_pickle_windows(path)
+    return data.features, data.sensors
+
+
 def main(argv=None):
-    """Serving CLI on reference checkpoints (``.pt``/``.pth``/``.npz``):
+    """Serving CLI:
 
         python -m fall_multimodal_tpu_torch.serve predict \\
-            --config gstcan_urfall_3stream --checkpoint best_model.pt \\
-            --input windows.npz --output predictions.csv [--proba]
+            --config gstcan_urfall_3stream --checkpoint outputs/run/ckpt/fold0 \\
+            [--which best] --input windows.npz --output predictions.csv [--proba]
 
         python -m fall_multimodal_tpu_torch.serve latency \\
             --config gstcan_urfall_3stream --checkpoint best_model.pt
 
+        python -m fall_multimodal_tpu_torch.serve export \\
+            --config gstcan_urfall_3stream --checkpoint outputs/run/ckpt \\
+            --output model.pt2 [--batch-size 128] [--sensor-dim 4]
+
         python -m fall_multimodal_tpu_torch.serve serve \\
             --config gstcan_urfall_3stream --checkpoint best_model.pt --port 8000
 
-    ``--input`` is an .npz with ``skeleton`` (N,T,V,C) and, for the families
-    that read it, ``sensor`` (N,T,S). ``--config`` names any preset of a
-    registered family (e.g. ``default_urfall`` for the single-stream
-    ``stgcan``, ``musa_harup`` for a Gen-3 ``best_model.pt``).
-    ``--num-copies k`` serves the Gen-3 k-copies rule. ``--device cpu`` runs
-    on the CPU; the default is the card.
+    ``--checkpoint`` is a checkpoint directory of the port's trainer (with
+    ``--which best|latest``) or a reference checkpoint file
+    (``.pt``/``.pth``/``.npz``; a JAX checkpoint converted by
+    ``experiments/convert_jax_checkpoint.py`` is such an ``.npz``).
+    ``--input`` is an ``.npz``, ``.npy`` or prep-pipeline pickle
+    (:func:`load_input`). ``--config`` names any preset of a registered family
+    (e.g. ``default_urfall`` for the single-stream ``stgcan``, ``musa_harup``
+    for a Gen-3 ``best_model.pt``), or the ``config.json`` a training run
+    leaves in its output dir. ``--num-copies k`` serves the Gen-3 k-copies
+    rule. ``--device cpu`` runs on the CPU; the default is the card.
     """
     import argparse
     import csv
     import json
-    import os
 
     from fall_multimodal_tpu_torch.configs import load_config, preset_path
 
@@ -289,9 +394,12 @@ def main(argv=None):
     sub = p.add_subparsers(dest="cmd", required=True)
 
     def common(s):
-        s.add_argument("--config", required=True, help="preset name or YAML path")
+        s.add_argument("--config", required=True, help="preset name or YAML/JSON path")
         s.add_argument("--checkpoint", required=True,
-                       help="reference checkpoint file (.pt/.pth/.npz)")
+                       help="checkpoint dir of the port's trainer, or a reference "
+                            "checkpoint file (.pt/.pth/.npz)")
+        s.add_argument("--which", default="best", choices=["best", "latest"],
+                       help="which checkpoint of a checkpoint dir")
         s.add_argument("--batch-size", type=int, default=128)
         s.add_argument("--device", default="cuda")
         s.add_argument("--num-copies", type=int, default=1,
@@ -309,6 +417,12 @@ def main(argv=None):
     common(s)
     s.add_argument("--pushes", type=int, default=200)
 
+    s = sub.add_parser("export", help="save the plain eval forward as a torch.export "
+                                      "program (.pt2) at --batch-size")
+    common(s)
+    s.add_argument("--output", default="model.pt2")
+    s.add_argument("--sensor-dim", type=int, default=None)
+
     s = sub.add_parser("serve", help="HTTP JSON prediction endpoint "
                                      "(GET /healthz, POST /v1/predict)")
     common(s)
@@ -318,16 +432,22 @@ def main(argv=None):
     args = p.parse_args(argv)
     cfg = load_config(args.config if os.path.exists(args.config)
                       else preset_path(args.config))
-    pred = Predictor.from_torch_checkpoint(cfg, args.checkpoint,
-                                           batch_size=args.batch_size,
-                                           device=args.device, num_copies=args.num_copies)
     d = cfg.data
 
+    def make_predictor():
+        kw = dict(batch_size=args.batch_size, device=args.device, num_copies=args.num_copies)
+        if os.path.isdir(args.checkpoint):
+            return Predictor.from_checkpoint(cfg, args.checkpoint, which=args.which, **kw)
+        return Predictor.from_torch_checkpoint(cfg, args.checkpoint, **kw)
+
     if args.cmd == "predict":
-        with np.load(args.input) as blob:
-            skeleton = blob["skeleton"]
-            sensor = blob["sensor"] if "sensor" in blob.files else None
-        proba = pred.predict_proba(skeleton, sensor)
+        skeleton, sensor = load_input(args.input)
+        if sensor is None and uses_sensor(cfg.model.name):
+            raise SystemExit(
+                f"model {cfg.model.name!r} consumes the sensor stream but "
+                f"{args.input!r} has no sensor array; provide an .npz with "
+                "both 'skeleton' and 'sensor', or a prep-pipeline pickle")
+        proba = make_predictor().predict_proba(skeleton, sensor)
         classes = proba.argmax(-1)
         with open(args.output, "w", newline="") as fh:
             writer = csv.writer(fh)
@@ -343,6 +463,22 @@ def main(argv=None):
         print(f"wrote {args.output}: {len(classes)} predictions, "
               f"{proba.shape[1]} classes")
         return {"n": len(classes), "output": args.output}
+
+    if args.cmd == "export":
+        dev = resolve_device(args.device)
+        state_dict = (checkpoint_state_dict(args.checkpoint, args.which, dev)
+                      if os.path.isdir(args.checkpoint)
+                      else load_state_dict_file(args.checkpoint))
+        skel_shape = (args.batch_size, d.seq_len, d.num_joints, d.in_channels)
+        sens_shape = (args.batch_size, d.seq_len, args.sensor_dim or d.sensor_dim)
+        blob = export_pt2(cfg, state_dict, skel_shape, sens_shape, device=dev)
+        with open(args.output, "wb") as fh:
+            fh.write(blob)
+        print(f"wrote {args.output}: {len(blob)} bytes of torch.export program "
+              f"(batch {args.batch_size}, {dev})")
+        return {"bytes": len(blob), "output": args.output}
+
+    pred = make_predictor()
 
     if args.cmd == "serve":
         from fall_multimodal_tpu_torch.server import make_server

@@ -1,19 +1,32 @@
-"""One training run of one split (counterpart of the JAX package's
-``train/cv.py:31-149``, ``run_fold``).
+"""One training run of one split, k-fold cross-validation and the
+hyperparameter grid (counterpart of the JAX package's ``train/cv.py``).
 
-The k-fold and grid drivers of the JAX package (``cross_validate``,
-``grid_search``) are not ported yet.
+Capabilities of ``main_cross_validation.py:256-370`` (10-fold CV with
+per-fold macro PRF collected into a summary) and
+``hyperparameter_tuning.py:442-471`` (cartesian grid over model kwargs,
+one training run per point, accumulated into a CSV). Each fold keeps its
+own checkpoint directory (the reference shared one ``best_model.pt``
+across folds). Folds and grid points run one after another on one device;
+the JAX package's fold-parallel driver (``train/cv_vmapped.py``) is not
+ported.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import csv
+import dataclasses
+import itertools
+import os
+from typing import Any, Dict, Iterable, List, Mapping, Optional
 
+import numpy as np
 import torch
 
 from fall_multimodal_tpu_torch.configs import Config
 from fall_multimodal_tpu_torch.data.augment import make_augment_fn
-from fall_multimodal_tpu_torch.data.pipeline import DeviceData
+from fall_multimodal_tpu_torch.data.loaders import kfold_datasets, split_dataset
+from fall_multimodal_tpu_torch.data.pipeline import DeviceData, to_device
+from fall_multimodal_tpu_torch.data.synthetic import WindowedDataset
 from fall_multimodal_tpu_torch.train.loop import FitResult, fit
 from fall_multimodal_tpu_torch.train.optim import build_optimizer, build_schedule
 from fall_multimodal_tpu_torch.train.state import create_train_state
@@ -123,3 +136,150 @@ def run_fold(
         scan_epochs=config.train.scan_epochs,
         augment_fn=make_augment_fn(config.augment, config.graph.layout),
     )
+
+
+def cross_validate(
+    config: Config,
+    data: WindowedDataset,
+    n_folds: Optional[int] = None,
+    epochs: Optional[int] = None,
+    logger=None,
+    checkpoint_dir: Optional[str] = None,
+    artifacts_dir: Optional[str] = None,
+    grad_norms: bool = False,
+    metrics_factory=None,
+    step_metrics_factory=None,
+    device="cuda",
+) -> Dict[str, Any]:
+    """K-fold CV over unique videos (``config.data.split_by_video``; sample
+    stratified folds with ``config.data.stratify_folds``), each fold trained
+    by :func:`run_fold` with ``fold_seed=i`` on ``device``. Returns
+    ``{"folds": [per-fold rows], "summary": {"<metric>_mean", "<metric>_std"}}``.
+
+    ``checkpoint_dir``: fold ``i`` checkpoints under ``<dir>/fold{i}``
+    (``best``, ``latest``). ``artifacts_dir``: fold ``i`` leaves the notebook
+    CV loop's artifacts under ``fold{i}/`` (:func:`_write_fold_artifacts`).
+    ``metrics_factory(i)`` / ``step_metrics_factory(i)`` return fold ``i``'s
+    ``(epoch, scalars)`` / ``(step, scalars)`` callbacks.
+    """
+    from fall_multimodal_tpu_torch.utils.checkpoint import Checkpointer
+
+    n_folds = n_folds or config.data.n_folds
+    folds = kfold_datasets(data, n_folds=n_folds, seed=config.seed,
+                           by_video=config.data.split_by_video,
+                           stratify=config.data.stratify_folds)
+    per_fold: List[Dict[str, float]] = []
+    for i, fold in enumerate(folds):
+        splits = {k: to_device(v, device) for k, v in fold.items()}
+        ckpt = None if checkpoint_dir is None else Checkpointer(f"{checkpoint_dir}/fold{i}")
+        result = run_fold(
+            config, splits, epochs=epochs, logger=logger, checkpointer=ckpt, fold_seed=i,
+            grad_norms=grad_norms,
+            metrics_callback=metrics_factory(i) if metrics_factory else None,
+            step_metrics_callback=step_metrics_factory(i) if step_metrics_factory else None,
+            device=device)
+        if artifacts_dir is not None:
+            _write_fold_artifacts(artifacts_dir, i, result, logger=logger)
+        stats = result.test.stats
+        row = {
+            "fold": i,
+            "val_accuracy": result.best_val_accuracy,
+            "test_accuracy": float(stats["accuracy"]),
+            "macro_precision": float(stats["macro_precision"]),
+            "macro_recall": float(stats["macro_recall"]),
+            "macro_f1": float(stats["macro_f1"]),
+            "micro_f1": float(stats["micro_f1"]),
+        }
+        per_fold.append(row)
+        if logger:
+            logger.info(f"fold {i}: test acc {row['test_accuracy']:.4f} "
+                        f"macro F1 {row['macro_f1']:.4f}")
+    metrics = [k for k in per_fold[0] if k != "fold"]
+    summary = {f"{m}_{agg}": float(getattr(np, agg)([row[m] for row in per_fold]))
+               for m in metrics for agg in ("mean", "std")}
+    return {"folds": per_fold, "summary": summary}
+
+
+def _write_fold_artifacts(artifacts_dir: str, fold_i: int, result: FitResult,
+                          logger=None) -> None:
+    """Fold ``fold_i``'s notebook artifacts (``GSTCAN_HAR_conv_10kfold.ipynb:7``)
+    under ``<artifacts_dir>/fold{i}/``: ``history.csv`` (the per-epoch curves)
+    and ``confusion.png`` (the test confusion heatmap; skipped with a warning
+    where matplotlib is not installed)."""
+    fold_dir = os.path.join(artifacts_dir, f"fold{fold_i}")
+    os.makedirs(fold_dir, exist_ok=True)
+    hist = result.history
+    # after fit's NaN guard breaks an epoch, train_loss is one entry longer
+    # than the other series: keep every column and leave the short ones blank
+    epochs_run = max((len(v) for v in hist.values()), default=0)
+    with open(os.path.join(fold_dir, "history.csv"), "w", newline="") as fh:
+        writer = csv.writer(fh)
+        cols = list(hist)
+        writer.writerow(["epoch"] + cols)
+        for e in range(epochs_run):
+            writer.writerow([e + 1] + [hist[c][e] if e < len(hist[c]) else "" for c in cols])
+    if result.test is not None:
+        from fall_multimodal_tpu_torch.train.metrics import save_confusion_png
+
+        try:
+            save_confusion_png(result.test.confusion, os.path.join(fold_dir, "confusion.png"),
+                               title=f"Fold {fold_i} confusion")
+        except ImportError:
+            if logger:
+                logger.warning(f"matplotlib unavailable; skipping confusion.png for "
+                               f"fold {fold_i}")
+
+
+def grid_search(
+    config: Config,
+    data: WindowedDataset,
+    grid: Mapping[str, Iterable[Any]],
+    epochs: Optional[int] = None,
+    logger=None,
+    grad_norms: bool = False,
+    metrics_factory=None,
+    step_metrics_factory=None,
+    device="cuda",
+) -> List[Dict[str, Any]]:
+    """Cartesian grid over model kwargs (e.g. embed_dim x n_stage x
+    act_type, ``hyperparameter_tuning.py:450-458``). Each point trains on
+    the config's split and records val/test accuracy; the rows come in grid
+    iteration order (the reference CSV's order,
+    ``hyperparameter_tuning.py:461-471``) with a ``rank`` column by
+    validation accuracy. ``metrics_factory(i)`` / ``step_metrics_factory(i)``
+    return point ``i``'s callbacks."""
+    keys = list(grid)
+    rows: List[Dict[str, Any]] = []
+    for point_i, values in enumerate(itertools.product(*(grid[k] for k in keys))):
+        point = dict(zip(keys, values))
+        cfg = config.replace(model=dataclasses.replace(
+            config.model, kwargs={**config.model.kwargs, **point}))
+        splits = {k: to_device(v, device) for k, v in split_dataset(
+            data, split=config.data.split, seed=cfg.seed,
+            by_video=config.data.split_by_video).items()}
+        result = run_fold(
+            cfg, splits, epochs=epochs, logger=logger, grad_norms=grad_norms,
+            metrics_callback=metrics_factory(point_i) if metrics_factory else None,
+            step_metrics_callback=(step_metrics_factory(point_i) if step_metrics_factory
+                                   else None),
+            device=device)
+        row = {**point, "val_accuracy": result.best_val_accuracy,
+               "test_accuracy": (float(result.test.stats["accuracy"]) if result.test
+                                 else None)}
+        rows.append(row)
+        if logger:
+            logger.info(f"grid point {point}: val {row['val_accuracy']:.4f}")
+    # the rows keep grid order (the reference artifact's); the ranking is a column
+    order = sorted(range(len(rows)), key=lambda i: -(rows[i]["val_accuracy"] or 0))
+    for rank, i in enumerate(order):
+        rows[i]["rank"] = rank + 1
+    return rows
+
+
+def reference_grid() -> Dict[str, List[Any]]:
+    """The reference's 48-point search space (``hyperparameter_tuning.py:449-454``)."""
+    return {
+        "embed_dim": [16, 32, 64],
+        "n_stage": [1, 2, 3, 4],
+        "act_type": ["relu", "leakyrelu", "tanh", "gelu"],
+    }

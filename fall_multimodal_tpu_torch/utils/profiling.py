@@ -1,13 +1,72 @@
-"""Gradient telemetry (counterpart of the JAX package's
-``utils/profiling.py:69-91``): the reference logged one TensorBoard scalar per
-parameter each optimizer step (``main.py:84-89``). Norms stay on the device;
-the caller reads them once per epoch."""
+"""Profiling and observability hooks (counterpart of the JAX package's
+``utils/profiling.py``).
+
+Beyond the reference's wall-clock ETA instrumentation (``main.py:98,137-142``),
+per-parameter gradient-norm TensorBoard scalars (``main.py:84-89``) and
+``torchinfo.summary`` (``Multimodal_Fall3/main.py:326-328``):
+
+* :func:`trace` — a ``torch.profiler`` trace of a block, written as a
+  Chrome/Perfetto trace file;
+* :class:`Throughput` — windows/s counter with an ETA;
+* :func:`global_norm` / :func:`grad_norms` — gradient telemetry that stays
+  on the device (the caller reads it once per epoch);
+* :func:`model_summary` — parameter table per state_dict name;
+* :func:`nan_debug` — raise at the first NaN that autograd produces.
+"""
 
 from __future__ import annotations
 
-from typing import Dict, Iterable
+import contextlib
+import os
+import time
+from typing import Dict, Iterable, Iterator
 
 import torch
+
+
+@contextlib.contextmanager
+def trace(log_dir: str) -> Iterator[None]:
+    """Profile the block (host operators, and the card's kernels when there
+    is one) and write ``<log_dir>/trace.json``, viewable in Perfetto or
+    ``chrome://tracing``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+class Throughput:
+    """Running windows/s counter with ETA (the reference's
+    ``cal_remaining_time`` loop instrumentation). Host clock: the caller
+    synchronises the card before :meth:`update` when it times device work."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self._windows = 0
+        self._start = time.perf_counter()
+        self._laps = []
+
+    def update(self, n_windows: int) -> None:
+        self._windows += n_windows
+        self._laps.append(time.perf_counter())
+
+    @property
+    def windows_per_sec(self) -> float:
+        dt = time.perf_counter() - self._start
+        return self._windows / dt if dt > 0 else 0.0
+
+    def eta_seconds(self, remaining_steps: int) -> float:
+        if len(self._laps) < 2:
+            return float("inf")
+        per_step = (self._laps[-1] - self._start) / len(self._laps)
+        return per_step * remaining_steps
 
 
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
@@ -23,3 +82,24 @@ def grad_norms(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
     parameter's state_dict name (the reference's key names)."""
     return {name: torch.linalg.vector_norm(p.grad.detach())
             for name, p in model.named_parameters() if p.grad is not None}
+
+
+def model_summary(model: torch.nn.Module) -> str:
+    """Parameter table: name, shape, count (``torchinfo.summary`` capability)."""
+    lines = [f"{'path':<64}{'shape':<20}{'params':>12}"]
+    total = 0
+    for name, param in model.named_parameters():
+        n = param.numel()
+        total += n
+        lines.append(f"{name:<64}{str(tuple(param.shape)):<20}{n:>12,}")
+    lines.append(f"{'TOTAL':<84}{total:>12,}")
+    return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def nan_debug(enable: bool = True) -> Iterator[None]:
+    """Inside the block, autograd raises at the first backward operation that
+    returns NaN (``torch.autograd.set_detect_anomaly(check_nan=True)``); the
+    caller's setting is put back on the way out."""
+    with torch.autograd.set_detect_anomaly(enable, check_nan=True):
+        yield

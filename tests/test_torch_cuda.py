@@ -410,3 +410,59 @@ def test_k_copies_runs_the_kernels_at_t15(cuda_device, no_tf32, preset, k1, k2):
                                        stgcan_block_reference(xb, folded, stride, mode),
                                        rtol=0, atol=TOL)
             t = (t - 1) // stride + 1
+
+
+# ------------------------------------------- CV folds served, export
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset,k1,k2", [("gstcan_urfall_3stream", 14, 0),
+                                          ("default_urfall", 0, 1)])
+def test_cv_fold_checkpoint_serves_through_the_kernels(cuda_device, no_tf32, tmp_path,  # noqa: F811
+                                                       preset, k1, k2):
+    """``cross_validate`` (2 folds x 1 epoch) on the card, then each fold's
+    ``best`` directory through ``Predictor.from_checkpoint``: the kernels
+    launch as the family's serving path says, and the logits equal the
+    same weights' plain eval forward at 1e-4."""
+    from fall_multimodal_tpu_torch.train.cv import cross_validate
+
+    cfg = load_config(preset_path(preset))
+    data = _train_data(cfg, 256)
+    cross_validate(cfg, data, n_folds=2, epochs=1, checkpoint_dir=str(tmp_path),
+                   device=cuda_device)
+    x = torch.from_numpy(data.features[:64]).to(cuda_device)
+    s = torch.from_numpy(data.sensors[:64]).to(cuda_device)
+    for i in range(2):
+        pred = Predictor.from_checkpoint(cfg, str(tmp_path / f"fold{i}"), which="best",
+                                         batch_size=64, device=cuda_device)
+        fused_stgcan_block.launches = fused_backbone_forward.launches = 0
+        got = pred.predict_logits(data.features[:64], data.sensors[:64])
+        assert (fused_stgcan_block.launches, fused_backbone_forward.launches) == (k1, k2)
+        with torch.no_grad():
+            want = pred.model(x, s).cpu().numpy()
+        np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
+
+
+@pytest.mark.cuda
+def test_export_on_the_card_matches_the_predictor_under_default_flags(cuda_device):  # noqa: F811
+    """The flagship's plain eval forward exported on the card at batch 128;
+    the loaded callable runs in full float32 under PyTorch's default TF32
+    flags and equals the Predictor's logits at 1e-4."""
+    from fall_multimodal_tpu_torch.serve import export_pt2, load_pt2
+
+    cfg = load_config(preset_path("gstcan_urfall_3stream"))
+    sd = seeded_model(cfg).state_dict()
+    d = cfg.data
+    rng = np.random.default_rng(3)
+    skel = rng.normal(size=(128, d.seq_len, d.num_joints, d.in_channels)).astype(np.float32)
+    sens = rng.normal(size=(128, d.seq_len, d.sensor_dim)).astype(np.float32)
+    forward = load_pt2(export_pt2(cfg, sd, skel.shape, sens.shape, device=cuda_device))
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got = forward(torch.from_numpy(skel).to(cuda_device),
+                      torch.from_numpy(sens).to(cuda_device)).cpu().numpy()
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    want = Predictor(cfg, sd, batch_size=128, device=cuda_device).predict_logits(skel, sens)
+    np.testing.assert_allclose(got, want, rtol=0, atol=TOL)

@@ -269,8 +269,8 @@ def test_cli_rejects_bad_input(tmp_path):
         _cli(tmp_path, "--epochs", "0")
     with pytest.raises(SystemExit, match="override"):
         _cli(tmp_path, "--set", "optim.nope=1")
-    with pytest.raises(SystemExit):
-        cli.main(["--config", "default_urfall", "--device", "cpu", "--cv"])
+    with pytest.raises(SystemExit, match="single-split path only"):
+        cli.main(["--config", "default_urfall", "--device", "cpu", "--cv", "--test-only"])
 
 
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(tmp_path, monkeypatch):
