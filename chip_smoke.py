@@ -41,8 +41,16 @@ forward; a ``musa_harup`` ``--grid``; a CSV tree read by the Gen-3 loader
 through the native slicer, built here and held against the numpy slicer;
 ``serve predict`` from ``.npy``, ``.npz`` and pickle input; ``serve export``
 of the flagship at batch 128, the loaded program against the Predictor
-under the default TF32 flags; printed as a ``{"cv": [...]}`` line.
-Any failed check raises.
+under the default TF32 flags; printed as a ``{"cv": [...]}`` line. Phase 10
+takes fold-parallel CV and data parallelism, which reach no kernel (their
+launch counts are read and printed): vmapped flagship steps of five folds
+at full width against the CPU and against the single-fold step, their host
+and device-busy ms beside the single-fold step's; ``cli.main
+--cv-vmapped`` and ``--cv`` of the flagship (5 folds x 2 epochs) on 1,024
+windows, ``--cv-vmapped --cv-mesh 1`` against the unsharded run,
+``cnn_bilstm`` vmapped over 10 folds, ``run_fold`` through a world-size-1
+NCCL mesh against the plain run; printed as a ``{"cv_parallel": ...}``
+line. Any failed check raises.
 The second-to-last line is a JSON object describing each kernel; the last
 line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -55,6 +63,7 @@ import csv
 import dataclasses
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -106,7 +115,14 @@ from fall_multimodal_tpu_torch.train import (
     make_train_epoch,
     make_train_step,
 )
+from fall_multimodal_tpu_torch.parallel import make_mesh
 from fall_multimodal_tpu_torch.train.cv import run_fold
+from fall_multimodal_tpu_torch.train.cv_vmapped import (
+    fold_indices,
+    load_fold,
+    make_fold_train_step,
+    stack_states,
+)
 from fall_multimodal_tpu_torch.utils.checkpoint import Checkpointer
 from fall_multimodal_tpu_torch.utils.device import full_float32
 
@@ -127,6 +143,9 @@ TF32_PRODUCTS = 3
 PEAK_BYTES = 3.35e12
 TRAIN_LOSS_RTOL = 1e-4   # card (split summation, cuDNN) vs CPU float32 train loss
 TRAIN_WINDOWS = 16_384   # device-resident windows behind the training timings
+FOLD_STEP_TOL = 1e-5     # vmapped fold vs the single-fold step: grouped vs plain cuDNN calls
+CV_MESH_TOL = 1e-6       # --cv-mesh 1 vs the unsharded vmapped run: the same program
+MESH_CURVE_TOL = 1e-5    # run_fold on a world-size-1 mesh vs plain, deterministic cuDNN
 # stgcan push p50 minus the batch-1 kernel time in the run before the
 # wrappers stopped checking every constant on every call (2.288 - 1.920 ms)
 HOST_SHARE_BEFORE_MS = 0.368
@@ -889,6 +908,269 @@ def cv_phase(dev, defaults, card):
             "phase_s": phase_s, "card": card}
 
 
+# ---- phase 10: fold-parallel CV, data parallelism ---------------------------
+
+CV_PARALLEL_FOLDS = 5
+
+
+def fold_states(cfg, folds, dev, steps_per_epoch):
+    """``folds`` seeded train states of ``cfg`` on ``dev`` (fold k seeded
+    ``cfg.seed + k``, as ``cross_validate_vmapped`` seeds them), stacked."""
+    optimizer = build_optimizer(cfg.optim, scheduler=cfg.lr_scheduler,
+                                steps_per_epoch=steps_per_epoch, max_norm=cfg.train.max_norm)
+    states = [create_train_state(cfg, optimizer, seed=cfg.seed + k, device=dev)
+              for k in range(folds)]
+    return stack_states(states, optimizer, torch.Generator(dev).manual_seed(cfg.seed)), \
+        optimizer
+
+
+def vmapped_step_checks(cfg, data_np, dev, defaults):
+    """Phase 10a's step checks at full width, batch 32: (1) one vmapped step of
+    two folds from one stacked state on the card, under PyTorch's default
+    TF32 flags, against the same step on the CPU: per-fold loss within
+    TRAIN_LOSS_RTOL; (2) four vmapped steps of CV_PARALLEL_FOLDS folds on the
+    card against the port's single-fold step of each fold on the same rows,
+    taken before each step from the fold's stacked state (``load_fold``):
+    per-step loss within FOLD_STEP_TOL. Single folds running free from the
+    same init are printed beside them: RMSprop's first update is +-10 lr
+    whatever a gradient's size, so float noise in small gradients parts free
+    runs after a step. Returns the errors."""
+    k, b = CV_PARALLEL_FOLDS, cfg.train.batch_size
+    rows = np.random.default_rng(SEED).integers(0, len(data_np), (4, k, b))
+    step = make_fold_train_step(softmax_before_ce=cfg.model.softmax_output)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = defaults
+    losses = []
+    for on in (dev, torch.device("cpu")):     # two folds: the CPU's step is the slow one
+        fs, _ = fold_states(cfg, 2, on, 4)
+        data = to_device(data_np, on)
+        _, m = step(fs, data, torch.as_tensor(rows[0, :2], device=on))
+        losses.append(m["loss"].cpu().numpy())
+    card_vs_cpu = np.abs(losses[0] - losses[1]) / np.abs(losses[1])
+    after = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    log(f"10a: vmapped step of 2 full-width flagship folds, batch {b}, under the default "
+        f"flags {defaults}: loss card {losses[0].tolist()} cpu {losses[1].tolist()} "
+        f"(rel err {card_vs_cpu.tolist()}); flags after {after}")
+    if not (card_vs_cpu.max() <= TRAIN_LOSS_RTOL and np.isfinite(losses[0]).all()) \
+            or after != defaults:
+        raise AssertionError(f"vmapped card step disagrees with the CPU ({card_vs_cpu}) or "
+                             f"the caller's flags changed ({after})")
+    data = to_device(data_np, dev)
+    folds, optimizer = fold_states(cfg, k, dev, 4)
+    singles = [create_train_state(cfg, optimizer, seed=cfg.seed + i, device=dev)
+               for i in range(k)]
+    free = [create_train_state(cfg, optimizer, seed=cfg.seed + i, device=dev)
+            for i in range(k)]
+    single_step = make_train_step(softmax_before_ce=cfg.model.softmax_output)
+    vm, seq, run_free = [], [], []
+    for r in rows:
+        idx = torch.as_tensor(r, device=dev)
+        for i, s in enumerate(singles):
+            load_fold(folds, i, s)
+        seq.append([float(single_step(s, gather_batch(data, idx[i]))[1]["loss"])
+                    for i, s in enumerate(singles)])
+        run_free.append([float(single_step(s, gather_batch(data, idx[i]))[1]["loss"])
+                         for i, s in enumerate(free)])
+        vm.append(step(folds, data, idx)[1]["loss"].cpu().numpy())
+    vm, seq, run_free = np.array(vm), np.array(seq), np.array(run_free)
+    fold_err = np.abs(vm - seq) / np.abs(seq)
+    free_err = np.abs(vm - run_free) / np.abs(run_free)
+    log(f"10a: vmapped folds vs the single-fold step from fold k's state, 4 steps x {k} "
+        f"folds: losses vmapped {vm.round(6).tolist()}, single {seq.round(6).tolist()}; max "
+        f"rel err per step {fold_err.max(1).tolist()}; single folds run free from the same "
+        f"init: max rel err per step {free_err.max(1).tolist()}")
+    if not fold_err.max() <= FOLD_STEP_TOL:
+        raise AssertionError(f"vmapped folds part from the single-fold step: {fold_err}")
+    return {"card_vs_cpu_loss_rel_err": card_vs_cpu.tolist(),
+            "fold_vs_single_loss_rel_err": fold_err.max(1).tolist(),
+            "fold_vs_free_single_loss_rel_err": free_err.max(1).tolist()}
+
+
+def fold_step_timing(cfg, data_np, dev, folds, steps=12):
+    """Host ms, CUDA-event ms and profiler device-busy ms of one vmapped step of
+    ``folds`` folds and of one sequential step, batch 32, full width; peak
+    memory of the vmapped steps."""
+    b = cfg.train.batch_size
+    data = to_device(data_np, dev)
+    fs, _ = fold_states(cfg, folds, dev, steps)
+    step = make_fold_train_step(softmax_before_ce=cfg.model.softmax_output)
+    rng = np.random.default_rng(SEED)
+    idx = torch.as_tensor(rng.integers(0, len(data_np), (steps, folds, b)), device=dev)
+    for i in range(3):
+        step(fs, data, idx[i])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        step(fs, data, idx[i])
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / steps
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    busy, acts = device_activity(lambda: step(fs, data, idx[0]), 3)
+    single = create_train_state(cfg, build_optimizer(cfg), seed=SEED, device=dev)
+    seq = make_train_epoch(softmax_before_ce=cfg.model.softmax_output)
+    flat = idx[:, 0]
+    seq(single, data, flat[:3])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seq(single, data, flat)
+    torch.cuda.synchronize()
+    seq_ms = (time.perf_counter() - t0) * 1e3 / steps
+    seq_busy, seq_acts = device_activity(lambda: seq(single, data, flat[:1]), 3)
+    row = {"folds": folds, "batch": b, "vmapped_host_ms": host_ms,
+           "vmapped_device_busy_ms": None if busy is None else busy / 3,
+           "vmapped_device_activities": acts / 3,
+           "vmapped_device_share": None if busy is None else busy / 3 / host_ms,
+           "vmapped_peak_mib": peak,
+           "vmapped_step_windows_per_s": folds * b / host_ms * 1e3,
+           "single_host_ms": seq_ms,
+           "single_device_busy_ms": None if seq_busy is None else seq_busy / 3,
+           "single_device_activities": seq_acts / 3,
+           "single_step_windows_per_s": b / seq_ms * 1e3}
+    row["step_speedup"] = row["vmapped_step_windows_per_s"] / row["single_step_windows_per_s"]
+    busy_txt = "not measured" if busy is None else f"{busy / 3:.3f} ms"
+    log(f"10a: vmapped step of {folds} folds: host {host_ms:.3f} ms, device busy {busy_txt} "
+        f"({acts / 3:.0f} device activities), peak {peak:.1f} MiB -> "
+        f"{row['vmapped_step_windows_per_s']:.1f} windows/s; single-fold step host "
+        f"{seq_ms:.3f} ms ({seq_acts / 3:.0f} device activities) -> "
+        f"{row['single_step_windows_per_s']:.1f} windows/s; {row['step_speedup']:.2f}x")
+    return row
+
+
+def cli_cv(preset, flag_args, folds, epochs, out, windows=CV_WINDOWS):
+    """``cli.main`` with ``flag_args`` on ``windows`` synthetic windows at the
+    preset's batch; seconds, windows trained, windows/s of the run."""
+    t0 = time.perf_counter()
+    res = train_cli.main(["--config", preset, *flag_args, "--folds", str(folds), "--epochs",
+                          str(epochs), "--synthetic-windows", str(windows),
+                          "--output-dir", out])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    with open(os.path.join(out, "cv_results.json")) as fh:
+        if json.load(fh) != json.loads(json.dumps(res)) or len(res["folds"]) != folds:
+            raise AssertionError(f"{preset} {flag_args}: cv_results.json disagrees with the run")
+    cfg = load_config(preset_path(preset))
+    d, b = cfg.data, cfg.train.batch_size
+    data = load_dataset(d.dataset, seq_len=d.seq_len, num_joints=d.num_joints,
+                        num_classes=d.num_classes, sensor_dim=d.sensor_dim, seed=cfg.seed,
+                        n_windows=windows)
+    fold_sets = fold_indices(cfg, data, folds)
+    if "--cv-vmapped" in flag_args:      # every fold steps min(train) // batch times
+        n_train = [min(len(f["train"]) for f in fold_sets) // b * b] * folds
+    else:
+        n_train = [len(f["train"]) // b * b for f in fold_sets]
+    windows_trained = sum(n_train) * epochs
+    accs = [r["test_accuracy"] for r in res["folds"]]
+    if not all(np.isfinite(accs)):
+        raise AssertionError(f"{preset} {flag_args}: non-finite fold results {res['folds']}")
+    row = {"preset": preset, "flags": flag_args, "folds": folds, "epochs": epochs,
+           "windows": windows, "batch": b, "run_s": run_s, "s_per_fold": run_s / folds,
+           "train_windows": windows_trained, "train_windows_per_s_of_run": windows_trained / run_s,
+           "test_accuracy": accs, "summary": res["summary"], "folds_rows": res["folds"]}
+    if "--cv" in flag_args:
+        epoch_s = 0.0
+        for i in range(folds):
+            with open(os.path.join(out, f"fold{i}", "history.csv")) as fh:
+                epoch_s += sum(float(r["epoch_time"]) for r in csv.DictReader(fh))
+    else:       # the vmapped driver's closing log line: "... in <s> s of epochs; ..."
+        with open(os.path.join(out, "log.txt")) as fh:
+            epoch_s = float(re.findall(r"in ([0-9.]+) s of epochs", fh.read())[-1])
+    row["epoch_s"] = epoch_s
+    row["train_windows_per_s_of_epoch_time"] = windows_trained / epoch_s
+    log(f"10: {preset} {' '.join(flag_args)} --folds {folds} --epochs {epochs}, {windows} "
+        f"windows, batch {b}: {run_s:.2f} s ({run_s / folds:.2f} s a fold), "
+        f"{windows_trained / run_s:.1f} train windows/s of the run, "
+        f"{row['train_windows_per_s_of_epoch_time']:.1f} of epoch time ({epoch_s:.2f} s); "
+        f"test acc {[round(a, 4) for a in accs]}")
+    return row
+
+
+def run_fold_on_a_mesh(dev):
+    """Phase 10d: ``run_fold`` of the flagship through a world-size-1 NCCL data
+    mesh against the plain ``run_fold`` (deterministic cuDNN for both):
+    curves within MESH_CURVE_TOL; one all-reduce through the group."""
+    import torch.distributed as dist
+
+    cfg = load_config(preset_path("gstcan_urfall_3stream"))
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, epochs=2))
+    d = cfg.data
+    data = make_synthetic(n_windows=CV_WINDOWS, num_classes=d.num_classes,
+                          sensor_dim=d.sensor_dim, seed=SEED)
+    splits = {k: to_device(v, dev) for k, v in split_dataset(data, seed=cfg.seed).items()}
+    mesh = make_mesh(1, device=dev)
+    probe = torch.arange(4.0, device=dev)
+    dist.all_reduce(probe, group=mesh.group)
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        t0 = time.perf_counter()
+        plain = run_fold(cfg, splits, device=dev)
+        plain_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        meshed = run_fold(cfg, splits, device=dev, mesh=mesh)
+        mesh_s = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    keys = ("train_loss", "train_acc", "val_loss", "val_acc")
+    err = max(float(np.abs(np.subtract(plain.history[k], meshed.history[k])).max())
+              for k in keys)
+    log(f"10d: flagship run_fold, 2 epochs, through a world-size-1 {dist.get_backend()} mesh "
+        f"({mesh_s:.2f} s) vs plain ({plain_s:.2f} s): curves max abs diff {err:.3e}; "
+        f"all-reduce probe {probe.tolist()}")
+    if not err <= MESH_CURVE_TOL or probe.tolist() != [0.0, 1.0, 2.0, 3.0]:
+        raise AssertionError(f"run_fold on a mesh parts from the plain run: {err}")
+    return {"backend": dist.get_backend(), "curves_max_abs_diff": err, "plain_s": plain_s,
+            "mesh_s": mesh_s, "history": {k: meshed.history[k] for k in keys}}
+
+
+def cv_parallel_phase(dev, defaults, card):
+    """Phase 10: fold-parallel CV and data parallelism on the card."""
+    root = os.path.join(ROOT, "outputs", "chip_smoke", "cv_parallel")
+    shutil.rmtree(root, ignore_errors=True)
+    t10 = time.perf_counter()
+    preset = "gstcan_urfall_3stream"
+    cfg = load_config(preset_path(preset))
+    d = cfg.data
+    data_np = make_synthetic(n_windows=CV_WINDOWS, num_classes=d.num_classes,
+                             sensor_dim=d.sensor_dim, seed=SEED)
+    fused_stgcan_block.launches = fused_backbone_forward.launches = 0
+    checks = vmapped_step_checks(cfg, data_np, dev, defaults)
+    timing = fold_step_timing(cfg, data_np, dev, CV_PARALLEL_FOLDS)
+    k, e = CV_PARALLEL_FOLDS, 2
+    vmapped = cli_cv(preset, ["--cv-vmapped"], k, e, os.path.join(root, "vmapped"))
+    sequential = cli_cv(preset, ["--cv"], k, e, os.path.join(root, "sequential"))
+    sharded = cli_cv(preset, ["--cv-vmapped", "--cv-mesh", "1"], k, e,
+                     os.path.join(root, "mesh1"))
+    mesh_err = max(abs(a[m] - b[m]) for a, b in zip(vmapped["folds_rows"], sharded["folds_rows"])
+                   for m in a)
+    log(f"10b: --cv-vmapped --cv-mesh 1 vs unsharded: per-fold results max abs diff "
+        f"{mesh_err:.3e}")
+    if not mesh_err <= CV_MESH_TOL:
+        raise AssertionError(f"--cv-mesh 1 disagrees with the unsharded run: {mesh_err}")
+    lstm = cli_cv("sensor_cnn_bilstm_urfall", ["--cv-vmapped"], 10, e,
+                  os.path.join(root, "cnn_bilstm"))
+    on_mesh = run_fold_on_a_mesh(dev)
+    launches = [fused_stgcan_block.launches, fused_backbone_forward.launches]
+    phase_s = time.perf_counter() - t10
+    speedup = vmapped["train_windows_per_s_of_run"] / sequential["train_windows_per_s_of_run"]
+    epoch_speedup = (vmapped["train_windows_per_s_of_epoch_time"]
+                     / sequential["train_windows_per_s_of_epoch_time"])
+    log(f"10: vmapped / sequential train windows/s of the run: {speedup:.2f}x, of epoch "
+        f"time: {epoch_speedup:.2f}x; kernel "
+        f"launches on this path (stgcan_block, fused_backbone): {launches}; phase 10: "
+        f"{phase_s:.1f} s")
+    shutil.rmtree(root, ignore_errors=True)
+    for row in (vmapped, sequential, sharded, lstm):
+        row.pop("folds_rows")
+    return {"cv_parallel": {"step_checks": checks, "step_timing": timing,
+                            "vmapped": vmapped, "sequential": sequential,
+                            "cv_mesh_1": dict(sharded, max_abs_diff=mesh_err),
+                            "cnn_bilstm_vmapped": lstm, "run_fold_mesh_1": on_mesh,
+                            "run_speedup": speedup, "epoch_time_speedup": epoch_speedup,
+                            "kernel_launches": launches,
+                            "phase_s": phase_s, "card": card}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU", file=sys.stderr)
@@ -1208,11 +1490,15 @@ def main() -> int:
     # ---- phase 9: k-fold CV and grid search through the CLIs, folds served ----
     cv_9 = cv_phase(dev, defaults, card)
 
+    # ---- phase 10: fold-parallel CV and data parallelism ---------------------
+    cv_10 = cv_parallel_phase(dev, defaults, card)
+
     log(json.dumps({"train": train_rows, "steps_card_vs_cpu": train_7a,
                     "train_then_serve": train_7b}))
     log(json.dumps({"families": families_8b, "fixtures": fixtures_8a, "k_copies": k_copies_8c,
                     "train_then_serve": served_8d, "train": train_8d, "card": card}))
     log(json.dumps(cv_9))
+    log(json.dumps(cv_10))
     log(json.dumps({"kernels": [{
         "name": "stgcan_block",
         "route": "cuda",

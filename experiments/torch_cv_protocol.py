@@ -5,13 +5,17 @@ video), 15% of the labels flipped (``parity_training.flip_labels``),
 video-level folds at seed 42 (valid == test per fold), 5 folds x 25 epochs
 at batch 32, each fold trained by the port's ``run_fold`` with
 ``fold_seed=i``: the arm the JAX package ran in ``experiments/parity_cv.py``.
+``--vmapped`` trains the same folds at once through ``cross_validate_vmapped``
+(config seed 42, which draws the folds there: fold k starts from seed 42 + k,
+and every epoch takes ``min fold train // 32`` steps).
 
     python3 experiments/torch_cv_protocol.py            # on the card
+    python3 experiments/torch_cv_protocol.py --vmapped
     python3 experiments/torch_cv_protocol.py --device cpu --folds 2 --epochs 1
 
 Prints per-fold best-val accuracy, macro F1 and wall-clock seconds, their
 mean and std, and the card's name and power limit; writes the same as JSON
-to ``chiprun_out/torch_cv_protocol.json``. Imports nothing of JAX.
+to ``chiprun_out/torch_cv_protocol[_vmapped].json``. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -41,14 +45,20 @@ def main(argv=None):
     from fall_multimodal_tpu_torch.configs import load_config, preset_path
     from fall_multimodal_tpu_torch.data import kfold_indices, make_synthetic, to_device
     from fall_multimodal_tpu_torch.train.cv import run_fold
+    from fall_multimodal_tpu_torch.train.cv_vmapped import cross_validate_vmapped
     from fall_multimodal_tpu_torch.utils.device import resolve_device, synchronize
 
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--folds", type=int, default=5)
     p.add_argument("--epochs", type=int, default=25)
     p.add_argument("--device", default="cuda")
-    p.add_argument("--out", default=os.path.join(ROOT, "chiprun_out", "torch_cv_protocol.json"))
+    p.add_argument("--vmapped", action="store_true",
+                   help="train the folds at once through the fold-parallel driver")
+    p.add_argument("--out", default=None,
+                   help="JSON output (default chiprun_out/torch_cv_protocol[_vmapped].json)")
     args = p.parse_args(argv)
+    args.out = args.out or os.path.join(
+        ROOT, "chiprun_out", f"torch_cv_protocol{'_vmapped' if args.vmapped else ''}.json")
 
     dev = resolve_device(args.device)
     card = "cpu"
@@ -64,7 +74,21 @@ def main(argv=None):
                       overrides={"seed": 0, "data.num_classes": CLASSES,
                                  "train.batch_size": 32})
     rows = []
-    for i, fold in enumerate(folds):
+    if args.vmapped:
+        synchronize(dev)
+        t0 = time.perf_counter()
+        res = cross_validate_vmapped(cfg.replace(seed=42), data, n_folds=args.folds,
+                                     epochs=args.epochs, device=dev)
+        synchronize(dev)
+        seconds = (time.perf_counter() - t0) / args.folds
+        for fold, r in zip(folds, res["folds"]):
+            rows.append({"fold": r["fold"], "train_windows": len(fold["train"]),
+                         "valid_windows": len(fold["valid"]),
+                         "best_val_accuracy": r["val_accuracy"],
+                         "test_accuracy": r["test_accuracy"], "macro_f1": r["macro_f1"],
+                         "seconds": seconds})
+            print(json.dumps(rows[-1]), flush=True)
+    for i, fold in enumerate([] if args.vmapped else folds):
         train, valid = data.subset(fold["train"]), data.subset(fold["valid"])
         splits = {"train": to_device(train, dev), "valid": to_device(valid, dev),
                   "test": to_device(valid, dev)}
@@ -85,6 +109,7 @@ def main(argv=None):
 
     acc = agg("best_val_accuracy")
     summary = {
+        "driver": "cross_validate_vmapped" if args.vmapped else "run_fold per fold",
         "protocol": {"folds": args.folds, "epochs": args.epochs, "windows": WINDOWS,
                      "classes": CLASSES, "noise": NOISE,
                      "label_flip": LABEL_FLIP, "batch": 32, "fold_seed": 42,

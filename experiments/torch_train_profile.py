@@ -1,14 +1,17 @@
 """Where a flagship train step of the PyTorch port spends its time, and how
 far its float32 gradients sit from float64, on one NVIDIA GPU.
 
-    python3 experiments/torch_train_profile.py [--batch 32] [--steps 5]
+    python3 experiments/torch_train_profile.py [--batch 32] [--steps 5] [--folds 1]
 
 1. Profile: the full-width flagship (``gstcan_urfall_3stream``, seeded
    init) trains ``--steps`` steps at ``--batch`` in float32 and in bfloat16
    under ``torch.profiler`` (CPU and CUDA activities). Prints, per step, the
    host time, the device-busy time (summed device activities), the number of
    kernel launches (``cudaLaunchKernel`` and friends) and of aten calls, and
-   the operators that take the most host time.
+   the operators that take the most host time. ``--folds K`` (K > 1)
+   profiles instead the fold-parallel CV step of K seeded folds
+   (``train/cv_vmapped.py:make_fold_train_step``, K batches of ``--batch``)
+   and also prints the kernels that take the most device time.
 2. Precision: the gradient of one train-mode loss from one state (seeded
    weights, batch ``--batch``, TF32 off) in float32 on the card, float32 on
    the CPU, float64 on the card and float64 on the CPU; for each, the
@@ -36,6 +39,7 @@ def main() -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--batch", type=int, default=32)
     p.add_argument("--steps", type=int, default=5)
+    p.add_argument("--folds", type=int, default=1)
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -59,26 +63,45 @@ def main() -> int:
     dev = torch.device("cuda")
     cfg = load_config(preset_path("gstcan_urfall_3stream"))
     d = cfg.data
-    data = make_synthetic(n_windows=4 * args.batch, num_classes=d.num_classes,
-                          sensor_dim=d.sensor_dim, seed=0)
+    data = make_synthetic(n_windows=max(4, args.folds) * args.batch,
+                          num_classes=d.num_classes, sensor_dim=d.sensor_dim, seed=0)
     split = to_device(data, dev)
-    idx = torch.arange(args.batch, device=dev)
+    idx = torch.arange(args.folds * args.batch, device=dev)
 
     for dtype in (None, torch.bfloat16):
-        state = create_train_state(cfg, build_optimizer(cfg), seed=0, device=dev)
-        step = make_train_step(softmax_before_ce=True, compute_dtype=dtype)
-        batch = gather_batch(split, idx)
+        if args.folds > 1:
+            from fall_multimodal_tpu_torch.train.cv_vmapped import (
+                make_fold_train_step,
+                stack_states,
+            )
+
+            opt = build_optimizer(cfg)
+            state = stack_states([create_train_state(cfg, opt, seed=k, device=dev)
+                                  for k in range(args.folds)], opt,
+                                 torch.Generator(dev).manual_seed(0))
+            fold_step = make_fold_train_step(softmax_before_ce=True, compute_dtype=dtype)
+            rows = idx.view(args.folds, args.batch)
+
+            def run():
+                fold_step(state, split, rows)
+        else:
+            state = create_train_state(cfg, build_optimizer(cfg), seed=0, device=dev)
+            step = make_train_step(softmax_before_ce=True, compute_dtype=dtype)
+            batch = gather_batch(split, idx)
+
+            def run():
+                step(state, batch)
         for _ in range(3):
-            step(state, batch)
+            run()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(args.steps):
-            step(state, batch)
+            run()
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3 / args.steps
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(args.steps):
-                step(state, batch)
+                run()
             torch.cuda.synchronize()
         events = prof.events()
         busy = sum(e.time_range.elapsed_us() for e in events
@@ -88,11 +111,16 @@ def main() -> int:
                                                                "cudaLaunchCooperative")))
         aten = sum(1 for e in events if e.name.startswith("aten::"))
         name = "float32" if dtype is None else "bfloat16"
+        if args.folds > 1:
+            name += f", {args.folds} folds vmapped"
         print(f"{name} batch {args.batch}: host {host_ms:.3f} ms/step (unprofiled), device "
               f"busy {busy / args.steps:.3f} ms/step, {launches / args.steps:.0f} kernel "
               f"launches and {aten / args.steps:.0f} aten calls per step [{card}]", flush=True)
         print(prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=25),
               flush=True)
+        if args.folds > 1:
+            print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=25),
+                  flush=True)
 
     # ---- precision: one step from one state, four ways ----------------------
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False

@@ -4,6 +4,9 @@
     python -m fall_multimodal_tpu_torch.cli --config gstcan_urfall_3stream \\
         --set optim.lr=5e-4 --set train.epochs=50 --output-dir outputs/run1
     python -m fall_multimodal_tpu_torch.cli --config gstcan_urfall_3stream --cv --folds 10
+    python -m fall_multimodal_tpu_torch.cli --config gstcan_urfall_3stream --cv-vmapped --folds 5
+    torchrun --nproc-per-node 2 -m fall_multimodal_tpu_torch.cli \\
+        --config gstcan_urfall_3stream --distributed --mesh 2
     python -m fall_multimodal_tpu_torch.cli --config musa_harup --grid   # 48 points
     python -m fall_multimodal_tpu_torch.cli --config gstcan_urfall_3stream \\
         --device cpu --set train.epochs=1 --set train.batch_size=8 \\
@@ -22,6 +25,10 @@ and then:
 * ``--cv``: ``cv_results.json`` (per-fold rows and their mean/std),
   ``fold{i}/history.csv`` and ``fold{i}/confusion.png`` (where matplotlib is
   installed), and ``ckpt/fold{i}/{best,latest}``;
+* ``--cv-vmapped``: ``cv_results.json`` of the same structure, every fold
+  trained at once in one vmapped step
+  (:mod:`~fall_multimodal_tpu_torch.train.cv_vmapped`; no per-fold files);
+  ``--cv-mesh N`` cuts the folds into N groups, one per card;
 * ``--grid``: ``grid_results.csv`` and ``grid_results.json``, one row per
   point in grid order with a ``rank`` column.
 
@@ -34,8 +41,12 @@ A fold's or a run's checkpoint directory serves through
 installed); ``--profile`` writes a ``torch.profiler`` trace of the run to
 ``<output-dir>/profile/trace.json``.
 
-The JAX CLI's ``--cv-vmapped``, ``--cv-mesh``, ``--mesh`` and
-``--distributed`` (fold-parallel CV and data parallelism) are not offered.
+``--mesh N`` trains the single run, ``--cv``, ``--grid`` and ``--test-only``
+data-parallel over N processes, one card each
+(:mod:`~fall_multimodal_tpu_torch.parallel.mesh`; the curves are one
+process's at the same global batch). N > 1 needs ``torchrun
+--nproc-per-node N`` and ``--distributed``, which joins the process group
+before anything touches the card; only rank 0 logs and writes files.
 """
 
 from __future__ import annotations
@@ -44,6 +55,7 @@ import argparse
 import csv
 import dataclasses
 import json
+import logging
 import math
 import os
 import time
@@ -58,6 +70,16 @@ def parse_args(argv=None):
                    help="dotted config override, e.g. optim.lr=5e-4")
     p.add_argument("--output-dir", default=None)
     p.add_argument("--cv", action="store_true", help="k-fold cross-validation")
+    p.add_argument("--cv-vmapped", action="store_true",
+                   help="k-fold CV with all folds trained at once in one vmapped step")
+    p.add_argument("--cv-mesh", type=int, default=None, metavar="N",
+                   help="with --cv-vmapped: cut the fold axis over N cards of this "
+                        "process (N must divide the fold count)")
+    p.add_argument("--mesh", type=int, default=None, metavar="N",
+                   help="data-parallel training over N processes, one card each: "
+                        "each step's batch split across them (applies to the "
+                        "single-split, --cv, --grid and --test-only paths; for "
+                        "--cv-vmapped use --cv-mesh)")
     p.add_argument("--folds", type=int, default=None,
                    help="number of CV folds (default: the config's data.n_folds)")
     p.add_argument("--grid", nargs="?", const="reference", default=None, metavar="JSON",
@@ -88,6 +110,11 @@ def parse_args(argv=None):
                         "<output-dir>/profile/trace.json")
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (default: the card)")
+    p.add_argument("--distributed", action="store_true",
+                   help="join the torch.distributed process group that torchrun "
+                        "describes (MASTER_ADDR/MASTER_PORT/RANK/WORLD_SIZE/LOCAL_RANK; "
+                        "NCCL on the card, gloo on the CPU) before anything touches "
+                        "the card; --mesh N then spans its N processes")
     return p.parse_args(argv)
 
 
@@ -125,7 +152,15 @@ def json_safe_history(hist):
 
 def validate_args(args) -> None:
     """Conflicts among the arguments fail before any data is loaded."""
-    multi_run = args.cv or bool(args.grid)
+    if args.cv_mesh and not args.cv_vmapped:
+        raise SystemExit(
+            "--cv-mesh shards the fold axis of the vmapped CV driver; pass it together "
+            "with --cv-vmapped (for data-parallel training of the other paths use --mesh N)")
+    if args.mesh and args.cv_vmapped:
+        raise SystemExit(
+            "--mesh (batch data-parallelism) does not apply to --cv-vmapped; use "
+            "--cv-mesh N to shard the fold axis")
+    multi_run = args.cv or args.cv_vmapped or bool(args.grid)
     if multi_run and (args.resume or args.pretrained):
         # retraining every fold from scratch while the user thinks they
         # resumed is worse than refusing
@@ -153,6 +188,11 @@ def main(argv=None) -> Dict:
 
     args = parse_args(argv)
     validate_args(args)
+    if args.distributed:
+        from fall_multimodal_tpu_torch.parallel import initialize_distributed
+
+        n = initialize_distributed(args.device)
+        print(f"torch.distributed initialized: {n} process(es)", flush=True)
     device = resolve_device(args.device)        # no card and no --device cpu: raise now
     cfg = load_cli_config(args)
     out_dir = args.output_dir or os.path.join(
@@ -176,14 +216,14 @@ def _run(args, cfg, out_dir, device) -> Dict:
             holder["writer"].close()
 
 
-def _scalar_callbacks(args, out_dir, holder):
+def _scalar_callbacks(args, out_dir, holder, main_rank=True):
     """``(metrics_callback, metrics_factory, step_metrics_callback,
     step_metrics_factory)`` writing TensorBoard scalars (reference
     SummaryWriter, ``main.py:146-148``; per-step gradient norms,
     ``main.py:84-89``); the factories tag fold ``i`` ``fold{i}/`` and grid
     point ``i`` ``point{i}/``. All None without ``--tensorboard`` and
-    ``--grad-norms``."""
-    if not (args.tensorboard or args.grad_norms):
+    ``--grad-norms``, and on a data mesh's ranks other than 0."""
+    if not (args.tensorboard or args.grad_norms) or not main_rank:
         return None, None, None, None
     from torch.utils.tensorboard import SummaryWriter
 
@@ -225,7 +265,16 @@ def _run_inner(args, cfg, out_dir, device, holder) -> Dict:
     from fall_multimodal_tpu_torch.utils.checkpoint import Checkpointer
     from fall_multimodal_tpu_torch.utils.profiling import model_summary
 
-    logger = create_logger(output_dir=out_dir, name="fall_multimodal_tpu_torch.cli")
+    mesh = None
+    if args.mesh:
+        from fall_multimodal_tpu_torch.parallel import make_mesh
+
+        mesh = make_mesh(args.mesh, device=device)
+    main_rank = mesh is None or mesh.rank == 0
+    # ranks other than 0 write no file and log only warnings and errors
+    logger = create_logger(output_dir=out_dir if main_rank else None,
+                           name="fall_multimodal_tpu_torch.cli",
+                           level=logging.INFO if main_rank else logging.WARNING)
     logger.info(f"config: {cfg.model.name} dataset={cfg.data.dataset} device={device}")
     data = load_dataset(
         cfg.data.dataset,
@@ -238,13 +287,17 @@ def _run_inner(args, cfg, out_dir, device, holder) -> Dict:
         n_windows=args.synthetic_windows,
     )
     logger.info(f"dataset: {len(data)} windows, {data.num_classes} classes")
-    with open(os.path.join(out_dir, "config.json"), "w") as fh:
-        json.dump(cfg.to_dict(), fh, indent=2, default=str)
+    if mesh is not None:
+        logger.info(f"data-parallel mesh: {mesh.size} process(es), rank {mesh.rank} on "
+                    f"{mesh.device}")
+    if main_rank:
+        with open(os.path.join(out_dir, "config.json"), "w") as fh:
+            json.dump(cfg.to_dict(), fh, indent=2, default=str)
     # the parameter table at the start of a run (the reference runs
     # torchinfo.summary before training, Multimodal_Fall3/main.py:326-328)
     logger.info("model summary:\n" + model_summary(build_model(cfg)))
     metrics_callback, metrics_factory, step_metrics_callback, step_metrics_factory = \
-        _scalar_callbacks(args, out_dir, holder)
+        _scalar_callbacks(args, out_dir, holder, main_rank)
 
     if args.grid:
         grid = reference_grid() if args.grid == "reference" else json.loads(args.grid)
@@ -258,7 +311,10 @@ def _run_inner(args, cfg, out_dir, device, holder) -> Dict:
                              + (f"; empty values for {', '.join(empty)}" if empty else ""))
         rows = grid_search(cfg, data, grid, epochs=args.epochs, logger=logger,
                            grad_norms=args.grad_norms, metrics_factory=metrics_factory,
-                           step_metrics_factory=step_metrics_factory, device=device)
+                           step_metrics_factory=step_metrics_factory, device=device,
+                           mesh=mesh)
+        if not main_rank:
+            return {"grid": rows}
         # one row per point in grid order (the reference's accumulation order,
         # hyperparameter_tuning.py:466-471), ranked in a column
         with open(os.path.join(out_dir, "grid_results.csv"), "w", newline="") as fh:
@@ -270,12 +326,25 @@ def _run_inner(args, cfg, out_dir, device, holder) -> Dict:
         logger.info(f"best grid point: {min(rows, key=lambda r: r['rank'])}")
         return {"grid": rows}
 
-    if args.cv:
-        results = cross_validate(cfg, data, n_folds=args.folds, epochs=args.epochs,
-                                 logger=logger, checkpoint_dir=os.path.join(out_dir, "ckpt"),
-                                 artifacts_dir=out_dir, grad_norms=args.grad_norms,
-                                 metrics_factory=metrics_factory,
-                                 step_metrics_factory=step_metrics_factory, device=device)
+    if args.cv or args.cv_vmapped:
+        if args.cv_vmapped:
+            from fall_multimodal_tpu_torch.parallel import make_mesh
+            from fall_multimodal_tpu_torch.train.cv_vmapped import cross_validate_vmapped
+
+            fold_mesh = (make_mesh(args.cv_mesh, axis="fold", device=device)
+                         if args.cv_mesh else None)
+            results = cross_validate_vmapped(
+                cfg, data, n_folds=args.folds, epochs=args.epochs, logger=logger,
+                mesh=fold_mesh, grad_norms=args.grad_norms, metrics_factory=metrics_factory,
+                step_metrics_factory=step_metrics_factory, device=device)
+        else:
+            results = cross_validate(
+                cfg, data, n_folds=args.folds, epochs=args.epochs, logger=logger,
+                checkpoint_dir=os.path.join(out_dir, "ckpt"), artifacts_dir=out_dir,
+                grad_norms=args.grad_norms, metrics_factory=metrics_factory,
+                step_metrics_factory=step_metrics_factory, device=device, mesh=mesh)
+        if not main_rank:
+            return results
         with open(os.path.join(out_dir, "cv_results.json"), "w") as fh:
             json.dump(results, fh, indent=2)
         logger.info(f"CV summary: {results['summary']}")
@@ -284,21 +353,27 @@ def _run_inner(args, cfg, out_dir, device, holder) -> Dict:
     splits_np = split_dataset(data, split=cfg.data.split, seed=cfg.seed,
                               by_video=cfg.data.split_by_video)
     splits = {k: to_device(v, device) for k, v in splits_np.items()}
-    ckpt = Checkpointer(os.path.join(out_dir, "ckpt")) if cfg.save_checkpoint else None
+    ckpt = (Checkpointer(os.path.join(out_dir, "ckpt"))
+            if cfg.save_checkpoint and main_rank else None)
 
     if args.test_only:
         state = create_train_state(cfg, build_optimizer(cfg), seed=cfg.seed, device=device)
         src = Checkpointer(args.resume or os.path.join(out_dir, "ckpt"))
         state, epoch, best = src.restore("best", state)
         logger.info(f"restored best (epoch {epoch}, val acc {best:.5f}) from {src.directory}")
+        if mesh is not None:
+            from fall_multimodal_tpu_torch.parallel import replicate_state
+
+            state = replicate_state(state, mesh)
         eval_epoch = make_eval_epoch(data.num_classes,
                                      label_smoothing=cfg.train.label_smoothing,
-                                     softmax_before_ce=cfg.model.softmax_output)
+                                     softmax_before_ce=cfg.model.softmax_output, mesh=mesh)
         test = evaluate(eval_epoch, state, splits["test"], cfg.train.batch_size)
         report = classification_report(test.confusion)
         logger.info(f"test accuracy {test.accuracy:.5f}\n{report}")
-        with open(os.path.join(out_dir, "report.txt"), "w") as fh:
-            fh.write(report)
+        if main_rank:
+            with open(os.path.join(out_dir, "report.txt"), "w") as fh:
+                fh.write(report)
         return {"test_accuracy": test.accuracy}
 
     result = run_fold(cfg, splits, epochs=args.epochs, logger=logger, checkpointer=ckpt,
@@ -307,7 +382,11 @@ def _run_inner(args, cfg, out_dir, device, holder) -> Dict:
                       pretrained_path=args.pretrained or cfg.pretrained_weight_path,
                       grad_norms=args.grad_norms,
                       step_metrics_callback=step_metrics_callback,
-                      device=device)
+                      device=device, mesh=mesh)
+    result_row = {"best_val_accuracy": result.best_val_accuracy,
+                  "test_accuracy": result.test.accuracy}
+    if not main_rank:
+        return result_row
     logger.info(f"{param_count(result.state):,} trainable parameters")
     logger.info(f"best val accuracy {result.best_val_accuracy:.5f}; "
                 f"test accuracy {result.test.accuracy:.5f}")
@@ -317,8 +396,7 @@ def _run_inner(args, cfg, out_dir, device, holder) -> Dict:
         json.dump(json_safe_history(result.history), fh, indent=2)
     with open(os.path.join(out_dir, "report.txt"), "w") as fh:
         fh.write(report)
-    return {"best_val_accuracy": result.best_val_accuracy,
-            "test_accuracy": result.test.accuracy}
+    return result_row
 
 
 if __name__ == "__main__":

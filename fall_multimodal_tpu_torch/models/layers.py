@@ -9,6 +9,7 @@ channel-last, as the JAX package does, so tensors compare directly.
 
 from __future__ import annotations
 
+import warnings
 from typing import Callable, Optional
 
 import torch
@@ -98,11 +99,28 @@ class BatchNorm1d(nn.BatchNorm1d):
     package (``models/layers.py:42-54``): the running variance takes the
     biased batch variance (sum over n), where stock torch takes the unbiased
     one (over n - 1). The normalisation itself, the eval forward and the
-    parameter and buffer names are torch's."""
+    parameter and buffer names are torch's.
+
+    ``stats_group``: a ``torch.distributed`` group of data-parallel ranks
+    that each hold a slice of one batch (set for the span of a train step by
+    :func:`~fall_multimodal_tpu_torch.parallel.mesh.global_batch_stats`). A
+    train-mode forward then takes the statistics of the whole batch, summed
+    across the group's ranks and differentiable through the sums, as one
+    process would over the whole batch (torch's ``SyncBatchNorm`` keeps the
+    unbiased running variance, so it is not used)."""
+
+    stats_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if self.stats_group is not None:
+            return self._global_forward(x)
+        if x.dtype != self.running_mean.dtype and torch._C._functorch.is_batchedtensor(x):
+            # functorch's batching rule takes no reduced-precision input beside
+            # float32 statistics (autocast in the vmapped CV step): normalise
+            # in float32 there
+            x = x.float()
         # torch's fused update adds momentum * var * n/(n-1) to the running
         # variance: scaling a copy of it by n/(n-1) before the update and by
         # (n-1)/n after leaves momentum * var (biased), without another pass
@@ -113,9 +131,48 @@ class BatchNorm1d(nn.BatchNorm1d):
         y = F.batch_norm(x, self.running_mean, running_var, self.weight, self.bias,
                          True, self.momentum, self.eps)
         with torch.no_grad():
-            torch.div(running_var, unbias, out=self.running_var)
+            # copy_, not div(out=): it runs under torch.func.vmap on stacked
+            # fold buffers (train/cv_vmapped.py)
+            self.running_var.copy_(running_var / unbias)
         self.num_batches_tracked.add_(1)
         return y
+
+    def _global_forward(self, x: torch.Tensor) -> torch.Tensor:
+        group = self.stats_group
+        dims = [0, *range(2, x.dim())]
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        n = x.numel() // x.shape[1] * torch.distributed.get_world_size(group)
+        # two passes over the moments, as F.batch_norm takes them: mean, then
+        # the centred square sum (biased variance)
+        mean = _AllReduceSum.apply(x.sum(dims), group) / n
+        centred = x - mean.view(shape)
+        var = _AllReduceSum.apply((centred * centred).sum(dims), group) / n
+        y = centred * torch.rsqrt(var + self.eps).view(shape)
+        y = y * self.weight.view(shape) + self.bias.view(shape)
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+        self.num_batches_tracked.add_(1)
+        return y
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """A sum across a ``torch.distributed`` group, differentiable: the
+    gradient of every rank's input is the sum of the ranks' output
+    gradients."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone()
+        torch.distributed.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        torch.distributed.all_reduce(grad, group=ctx.group)
+        return grad, None
 
 
 class BatchNorm(BatchNorm1d):
@@ -240,14 +297,70 @@ class MlpChannelAttention(nn.Module):
         return x * self.attention(x)
 
 
+def _bilstm(x: torch.Tensor, weights) -> torch.Tensor:
+    """One bidirectional single-layer LSTM, batch first, zero initial state;
+    ``weights`` in ``nn.LSTM._flat_weights`` order."""
+    h0 = x.new_zeros(2, x.shape[0], weights[1].shape[1])
+    return torch.lstm(x, (h0, h0), list(weights), True, 1, 0.0, torch.is_grad_enabled(),
+                      True, True)[0]
+
+
+class _FoldBatchedBiLSTM(torch.autograd.Function):
+    """:func:`_bilstm` with a rule of its own under ``torch.func.vmap``:
+    ``aten::lstm`` has no batching rule, so a vmap over stacked models (the
+    folds of :mod:`~fall_multimodal_tpu_torch.train.cv_vmapped`) runs one
+    LSTM per slice of the vmapped axis, each on its own weights, and stacks
+    the outputs: exact against a model run alone, one cuDNN call per fold
+    forward and one backward. Autograd differentiates those calls
+    directly; :meth:`backward` serves a call outside vmap, by recomputing."""
+
+    generate_vmap_rule = False
+
+    @staticmethod
+    def forward(x, *weights):
+        return _bilstm(x, weights)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = _bilstm(inputs[0], inputs[1:])
+        return torch.autograd.grad(out, inputs, grad)
+
+    @staticmethod
+    def vmap(info, in_dims, x, *weights):
+        def part(t, dim, i):
+            return t if dim is None else t.select(dim, i)
+
+        with warnings.catch_warnings():
+            # a slice of stacked weights is not cuDNN's flat buffer: each call
+            # packs its fold's weights (~50k floats) first, as it warns
+            warnings.filterwarnings("ignore", message="RNN module weights are not part")
+            outs = [_bilstm(part(x, in_dims[0], i),
+                            [part(w, d, i) for w, d in zip(weights, in_dims[1:])])
+                    for i in range(info.batch_size)]
+        return torch.stack(outs), 0
+
+
 class BiLSTMLayer(nn.LSTM):
     """Bidirectional single-layer LSTM over ``(N, T, F) -> (N, T, 2H)``;
     ``out[:, t, :H]`` is the forward state at t, ``out[:, t, H:]`` the
-    backward state at t (``layers.py:190-232``)."""
+    backward state at t (``layers.py:190-232``). Under ``torch.func.vmap``
+    (stacked fold states) it runs one LSTM per fold
+    (:class:`_FoldBatchedBiLSTM`); otherwise it is ``nn.LSTM``."""
 
     def __init__(self, input_size: int, hidden_size: int):
         super().__init__(input_size, hidden_size, batch_first=True,
                          bidirectional=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # by name: torch.func.functional_call swaps the parameters in without
+        # touching nn.LSTM's cached _flat_weights
+        weights = [getattr(self, name) for name in self._flat_weights_names]
+        if any(map(torch._C._functorch.is_batchedtensor, (x, *weights))):
+            return _FoldBatchedBiLSTM.apply(x, *weights)
         return super().forward(x)[0]

@@ -6,9 +6,9 @@ per-fold macro PRF collected into a summary) and
 ``hyperparameter_tuning.py:442-471`` (cartesian grid over model kwargs,
 one training run per point, accumulated into a CSV). Each fold keeps its
 own checkpoint directory (the reference shared one ``best_model.pt``
-across folds). Folds and grid points run one after another on one device;
-the JAX package's fold-parallel driver (``train/cv_vmapped.py``) is not
-ported.
+across folds). Folds and grid points run one after another, each on one
+device or data-parallel over a mesh (``mesh=``); the fold-parallel driver
+is :mod:`~fall_multimodal_tpu_torch.train.cv_vmapped`.
 """
 
 from __future__ import annotations
@@ -46,6 +46,7 @@ def run_fold(
     grad_norms: bool = False,
     step_metrics_callback=None,
     device="cuda",
+    mesh=None,
 ) -> FitResult:
     """Train one split on ``device`` (the card unless the caller passes
     ``"cpu"``; the splits must already be there, :func:`~fall_multimodal_tpu_torch.
@@ -59,7 +60,9 @@ def run_fold(
     ``main.py:306-310``): a reference checkpoint file (``.pt``/``.pth``/
     ``.npz``, read by :func:`~fall_multimodal_tpu_torch.interop.
     load_state_dict_file`), or a checkpoint directory (its ``best`` model).
-    ``train.dtype: bfloat16`` trains under ``torch.autocast``.
+    ``train.dtype: bfloat16`` trains under ``torch.autocast``. ``mesh``: a
+    data mesh (:func:`~fall_multimodal_tpu_torch.parallel.mesh.make_mesh`)
+    trains data-parallel, each rank on ``device`` (its own card).
     """
     dev = torch.empty(0, device=resolve_device(device)).device   # with its index
     on = {split.features.device for split in splits.values()}
@@ -135,6 +138,7 @@ def run_fold(
         epoch_impl=config.train.epoch_impl,
         scan_epochs=config.train.scan_epochs,
         augment_fn=make_augment_fn(config.augment, config.graph.layout),
+        mesh=mesh,
     )
 
 
@@ -150,6 +154,7 @@ def cross_validate(
     metrics_factory=None,
     step_metrics_factory=None,
     device="cuda",
+    mesh=None,
 ) -> Dict[str, Any]:
     """K-fold CV over unique videos (``config.data.split_by_video``; sample
     stratified folds with ``config.data.stratify_folds``), each fold trained
@@ -160,9 +165,13 @@ def cross_validate(
     (``best``, ``latest``). ``artifacts_dir``: fold ``i`` leaves the notebook
     CV loop's artifacts under ``fold{i}/`` (:func:`_write_fold_artifacts`).
     ``metrics_factory(i)`` / ``step_metrics_factory(i)`` return fold ``i``'s
-    ``(epoch, scalars)`` / ``(step, scalars)`` callbacks.
+    ``(epoch, scalars)`` / ``(step, scalars)`` callbacks. ``mesh``: each
+    fold data-parallel (:func:`run_fold`); only rank 0 logs and writes.
     """
     from fall_multimodal_tpu_torch.utils.checkpoint import Checkpointer
+
+    if mesh is not None and mesh.rank != 0:
+        logger = checkpoint_dir = artifacts_dir = None
 
     n_folds = n_folds or config.data.n_folds
     folds = kfold_datasets(data, n_folds=n_folds, seed=config.seed,
@@ -177,23 +186,33 @@ def cross_validate(
             grad_norms=grad_norms,
             metrics_callback=metrics_factory(i) if metrics_factory else None,
             step_metrics_callback=step_metrics_factory(i) if step_metrics_factory else None,
-            device=device)
+            device=device, mesh=mesh)
         if artifacts_dir is not None:
             _write_fold_artifacts(artifacts_dir, i, result, logger=logger)
-        stats = result.test.stats
-        row = {
-            "fold": i,
-            "val_accuracy": result.best_val_accuracy,
-            "test_accuracy": float(stats["accuracy"]),
-            "macro_precision": float(stats["macro_precision"]),
-            "macro_recall": float(stats["macro_recall"]),
-            "macro_f1": float(stats["macro_f1"]),
-            "micro_f1": float(stats["micro_f1"]),
-        }
+        row = fold_row(i, result.best_val_accuracy, result.test.stats)
         per_fold.append(row)
         if logger:
             logger.info(f"fold {i}: test acc {row['test_accuracy']:.4f} "
                         f"macro F1 {row['macro_f1']:.4f}")
+    return cv_results(per_fold)
+
+
+def fold_row(fold: int, val_accuracy: float, stats: Mapping[str, Any]) -> Dict[str, float]:
+    """One fold's row of ``cv_results.json`` from its best validation accuracy
+    and the test statistics of its best state (``prf_from_confusion``)."""
+    return {
+        "fold": fold,
+        "val_accuracy": float(val_accuracy),
+        "test_accuracy": float(stats["accuracy"]),
+        "macro_precision": float(stats["macro_precision"]),
+        "macro_recall": float(stats["macro_recall"]),
+        "macro_f1": float(stats["macro_f1"]),
+        "micro_f1": float(stats["micro_f1"]),
+    }
+
+
+def cv_results(per_fold: List[Dict[str, float]]) -> Dict[str, Any]:
+    """``{"folds": rows, "summary": {"<metric>_mean", "<metric>_std"}}``."""
     metrics = [k for k in per_fold[0] if k != "fold"]
     summary = {f"{m}_{agg}": float(getattr(np, agg)([row[m] for row in per_fold]))
                for m in metrics for agg in ("mean", "std")}
@@ -240,6 +259,7 @@ def grid_search(
     metrics_factory=None,
     step_metrics_factory=None,
     device="cuda",
+    mesh=None,
 ) -> List[Dict[str, Any]]:
     """Cartesian grid over model kwargs (e.g. embed_dim x n_stage x
     act_type, ``hyperparameter_tuning.py:450-458``). Each point trains on
@@ -247,7 +267,9 @@ def grid_search(
     iteration order (the reference CSV's order,
     ``hyperparameter_tuning.py:461-471``) with a ``rank`` column by
     validation accuracy. ``metrics_factory(i)`` / ``step_metrics_factory(i)``
-    return point ``i``'s callbacks."""
+    return point ``i``'s callbacks; ``mesh``: each point data-parallel."""
+    if mesh is not None and mesh.rank != 0:
+        logger = None
     keys = list(grid)
     rows: List[Dict[str, Any]] = []
     for point_i, values in enumerate(itertools.product(*(grid[k] for k in keys))):
@@ -262,7 +284,7 @@ def grid_search(
             metrics_callback=metrics_factory(point_i) if metrics_factory else None,
             step_metrics_callback=(step_metrics_factory(point_i) if step_metrics_factory
                                    else None),
-            device=device)
+            device=device, mesh=mesh)
         row = {**point, "val_accuracy": result.best_val_accuracy,
                "test_accuracy": (float(result.test.stats["accuracy"]) if result.test
                                  else None)}

@@ -33,10 +33,19 @@ from fall_multimodal_tpu_torch.data.pipeline import (
     eval_batch_mask,
     gather_batch,
 )
+from fall_multimodal_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_reduce_,
+    global_batch_stats,
+    local_rows,
+    replicate_data,
+    replicate_state,
+)
 from fall_multimodal_tpu_torch.train.losses import cross_entropy, cross_entropy_per_sample
 from fall_multimodal_tpu_torch.train.metrics import prf_from_confusion
 from fall_multimodal_tpu_torch.train.state import TrainState
 from fall_multimodal_tpu_torch.utils.device import full_float32
+from fall_multimodal_tpu_torch.utils.profiling import Throughput
 
 EMPTY_SPLIT = ("evaluate() got an empty split (0 windows) — the dataset is too "
                "small for the configured split fractions / fold count")
@@ -63,6 +72,7 @@ def make_train_step(
     compute_dtype: Optional[torch.dtype] = None,
     grad_norms: bool = False,
     augment_fn=None,
+    mesh: Optional[Mesh] = None,
 ) -> Callable[[TrainState, DeviceData], Tuple[TrainState, Dict[str, Any]]]:
     """One optimizer step on the state's model and optimizer: forward in
     train mode (batch statistics; dropout, DropGraph and stochastic depth
@@ -72,6 +82,12 @@ def make_train_step(
 
     ``grad_norms``: per-parameter L2 norms of the raw gradients (before
     clipping), keyed by state_dict name.
+
+    ``mesh`` (a data mesh, :mod:`~fall_multimodal_tpu_torch.parallel.mesh`):
+    the batch is the global one; it is augmented whole, each rank trains on
+    its rows with the whole batch's BatchNorm statistics, and the gradients
+    and metrics are averaged across the ranks: the step of one process at
+    the global batch.
     """
 
     def step(state: TrainState, batch: DeviceData):
@@ -81,14 +97,21 @@ def make_train_step(
         feats, sens = batch.features, batch.sensors
         if augment_fn is not None:
             feats, sens = augment_fn(state.generator, feats, sens)
+        feats, sens, labels = (local_rows(x, mesh) for x in (feats, sens, batch.labels))
         with full_float32() if compute_dtype is None else contextlib.nullcontext():
-            with _precision(compute_dtype, state.device):
+            with _precision(compute_dtype, state.device), global_batch_stats(model, mesh):
                 logits = model(feats, sens, generator=state.generator)
-            loss = cross_entropy(logits.float(), batch.labels,
+            loss = cross_entropy(logits.float(), labels,
                                  label_smoothing=label_smoothing,
                                  softmax_before_ce=softmax_before_ce)
             state.optimizer.zero_grad()
             loss.backward()
+            if mesh is not None:
+                grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                         for p in state.optimizer.params]
+                for p, g in zip(state.optimizer.params, grads):
+                    p.grad = g
+                all_reduce_(grads, mesh, average=True)
             metrics: Dict[str, Any] = {}
             if grad_norms:
                 from fall_multimodal_tpu_torch.utils.profiling import grad_norms as _gn
@@ -97,15 +120,21 @@ def make_train_step(
             state.optimizer.step()
         state.step += 1
         with torch.no_grad():
-            acc = (logits.argmax(-1) == batch.labels.argmax(-1)).float().mean()
-        metrics.update(loss=loss.detach(), accuracy=acc)
+            acc = (logits.argmax(-1) == labels.argmax(-1)).float().mean()
+            loss = loss.detach()
+            if mesh is not None:
+                scalars = torch.stack([loss, acc])
+                all_reduce_([scalars], mesh, average=True)
+                loss, acc = scalars
+        metrics.update(loss=loss, accuracy=acc)
         return state, metrics
 
     return step
 
 
 def make_train_epoch(label_smoothing=0.0, softmax_before_ce=False, compute_dtype=None,
-                     grad_norms=False, impl: str = "auto", augment_fn=None):
+                     grad_norms=False, impl: str = "auto", augment_fn=None,
+                     mesh: Optional[Mesh] = None):
     """Whole-epoch function: ``(state, data, batch_idx) -> (state, metrics)``
     over an explicit ``(steps, batch)`` index matrix (numpy or a tensor).
 
@@ -115,6 +144,8 @@ def make_train_epoch(label_smoothing=0.0, softmax_before_ce=False, compute_dtype
 
     ``impl``: ``"auto"`` and ``"host"`` drive the step from Python (the JAX
     package's ``"host"``). ``"scan"`` has no counterpart in the port yet.
+    ``mesh``: every rank steps through the same global index matrix
+    (:func:`make_train_step`).
     """
     if impl not in ("auto", "host"):
         raise ValueError(
@@ -122,7 +153,7 @@ def make_train_epoch(label_smoothing=0.0, softmax_before_ce=False, compute_dtype
             "every step from the host ('host'; 'auto' picks it); a whole epoch "
             "as one device program ('scan') has no counterpart yet")
     train_step = make_train_step(label_smoothing, softmax_before_ce, compute_dtype,
-                                 grad_norms=grad_norms, augment_fn=augment_fn)
+                                 grad_norms=grad_norms, augment_fn=augment_fn, mesh=mesh)
 
     def epoch(state: TrainState, data: DeviceData, batch_idx):
         batch_idx = torch.as_tensor(batch_idx, device=data.features.device)
@@ -148,11 +179,13 @@ def make_train_epoch(label_smoothing=0.0, softmax_before_ce=False, compute_dtype
     return epoch
 
 
-def make_eval_epoch(num_classes: int, label_smoothing=0.0, softmax_before_ce=False):
+def make_eval_epoch(num_classes: int, label_smoothing=0.0, softmax_before_ce=False,
+                    mesh: Optional[Mesh] = None):
     """Eval over padded batches: ``(state, data, batch_idx, batch_mask) ->
     (confusion (K, K), loss_sum)``, both accumulated on the device under
     the mask. The model runs in eval mode (running statistics), full
-    float32, without autograd."""
+    float32, without autograd. ``mesh``: each rank evaluates its rows of
+    every batch, and the two sums are summed across the ranks."""
 
     def epoch(state: TrainState, data: DeviceData, batch_idx, batch_mask):
         dev = data.features.device
@@ -166,6 +199,7 @@ def make_eval_epoch(num_classes: int, label_smoothing=0.0, softmax_before_ce=Fal
         try:
             with torch.no_grad(), full_float32():
                 for idx, mask in zip(batch_idx, batch_mask):
+                    idx, mask = local_rows(idx, mesh), local_rows(mask, mesh)
                     batch = gather_batch(data, idx)
                     logits = model(batch.features, batch.sensors)
                     flat = batch.labels.argmax(-1) * num_classes + logits.argmax(-1)
@@ -175,6 +209,7 @@ def make_eval_epoch(num_classes: int, label_smoothing=0.0, softmax_before_ce=Fal
                     loss_sum += (per_sample * mask).sum()
         finally:
             model.train(was_training)
+        all_reduce_([cm, loss_sum], mesh)
         return cm.reshape(num_classes, num_classes), loss_sum
 
     return epoch
@@ -234,6 +269,7 @@ def fit(
     epoch_impl: str = "auto",
     augment_fn=None,
     scan_epochs=None,
+    mesh: Optional[Mesh] = None,
 ) -> FitResult:
     """Epoch driver: train -> valid (track best) -> final test on best.
 
@@ -246,6 +282,14 @@ def fit(
     ``nan_guard`` a non-finite train loss stops the run and keeps the best
     state. ``step_metrics_callback`` receives per-step gradient norms
     (``grad_norms=True``), flushed once per epoch.
+
+    ``mesh``: a data mesh (:func:`~fall_multimodal_tpu_torch.parallel.mesh.
+    make_mesh`) turns the run data-parallel: rank 0's state and splits on
+    every rank, each step's global batch split across the ranks
+    (:func:`make_train_step`), eval sums across them; the curves are the
+    single process's at the same global batch. Only rank 0 logs, calls
+    back and writes checkpoints; the log line adds windows/s in all and per
+    card (:class:`~fall_multimodal_tpu_torch.utils.profiling.Throughput`).
     """
     if scan_epochs:
         raise ValueError(
@@ -254,10 +298,22 @@ def fit(
             "counterpart yet (leave train.scan_epochs unset)")
     if splits["valid"].n == 0:
         raise ValueError(EMPTY_SPLIT)
+    throughput = None
+    if mesh is not None:
+        if batch_size % mesh.size:
+            raise ValueError(f"batch_size={batch_size} must divide evenly over the "
+                             f"{mesh.size}-process mesh")
+        state = replicate_state(state, mesh)
+        if initial_best_state is not None:
+            initial_best_state = replicate_state(initial_best_state, mesh)
+        splits = {k: replicate_data(v, mesh) for k, v in splits.items()}
+        if mesh.rank != 0:
+            logger = checkpointer = metrics_callback = step_metrics_callback = None
+        throughput = Throughput(n_devices=mesh.size)
     train_epoch = make_train_epoch(label_smoothing, softmax_before_ce, compute_dtype,
                                    grad_norms=grad_norms, impl=epoch_impl,
-                                   augment_fn=augment_fn)
-    eval_epoch = make_eval_epoch(num_classes, label_smoothing, softmax_before_ce)
+                                   augment_fn=augment_fn, mesh=mesh)
+    eval_epoch = make_eval_epoch(num_classes, label_smoothing, softmax_before_ce, mesh=mesh)
 
     history: Dict[str, list] = {
         "train_loss": [], "train_acc": [], "val_loss": [], "val_acc": [],
@@ -317,11 +373,16 @@ def fit(
             if lr_fn is not None:
                 epoch_scalars["lr"] = float(lr_fn(state.step - 1))
             metrics_callback(epoch_i, epoch_scalars)
+        rate = ""
+        if throughput is not None:
+            throughput.update(idx.numel())
+            rate = (f" | {throughput.windows_per_sec:.1f} windows/s, "
+                    f"{throughput.windows_per_sec_per_chip:.1f} per card")
         if logger and (epoch_i % log_every == 0 or epoch_i == epochs):
             logger.info(
                 f"epoch {epoch_i}/{epochs} "
                 f"train loss {train_loss:.4f} acc {train_acc:.4f} | "
-                f"val loss {val.loss:.4f} acc {val.accuracy:.4f} | {dt:.2f}s")
+                f"val loss {val.loss:.4f} acc {val.accuracy:.4f} | {dt:.2f}s{rate}")
         if checkpointer is not None:
             checkpointer.save_latest(state, epoch_i, best_acc)
 

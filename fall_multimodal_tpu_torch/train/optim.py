@@ -13,6 +13,8 @@ optax chain in its order:
 2. the (averaged) gradient is clipped by its global norm the way optax
    clips: scaled by ``max_norm / norm`` only when ``norm >= max_norm``
    (``torch.nn.utils.clip_grad_norm_`` would divide by ``norm + 1e-6``);
+   over parameters stacked along a fold axis (``init(..., fold_axis=True)``)
+   each fold is clipped by its own norm, as optax clips under ``vmap``;
 3. weight decay is added to the gradient inside the torch update (for
    rmsprop before the square average, as ``optim.py:150-162`` chains it);
 4. the learning rate of update ``g`` (counted in gradient steps, not
@@ -21,6 +23,10 @@ optax chain in its order:
 ``torch.optim.RMSprop(alpha=rms_decay, eps=eps)`` is the JAX package's
 ``scale_by_torch_rms`` (``s <- a*s + (1-a)*g^2; p <- p - lr*g/(sqrt(s)+eps)``);
 the port's tests hold the two against each other.
+
+Every update rule here, weight decay and the accumulation are elementwise,
+so one optimizer over K folds' stacked parameters makes the K folds'
+updates independently (one schedule: the folds take equal steps).
 """
 
 from __future__ import annotations
@@ -112,12 +118,14 @@ class Optimizer:
         self.acc: Optional[List[torch.Tensor]] = None
         self.mini_step = 0          # micro-steps into the current accumulation
         self.gradient_step = 0      # updates applied so far
+        self.fold_axis = False      # parameters stacked along a leading fold axis
 
     def lr_at(self, gradient_step: int) -> float:
         return float(self.lr(gradient_step)) if callable(self.lr) else float(self.lr)
 
-    def init(self, params: Iterable[torch.Tensor]) -> "Optimizer":
+    def init(self, params: Iterable[torch.Tensor], fold_axis: bool = False) -> "Optimizer":
         bound = copy.copy(self)
+        bound.fold_axis = fold_axis
         bound.params = [p for p in params if p.requires_grad]
         bound.inner = self._make(bound.params, bound.lr_at(0))
         bound.acc = ([torch.zeros_like(p) for p in bound.params]
@@ -131,11 +139,16 @@ class Optimizer:
 
     def _clip(self, grads: List[torch.Tensor]) -> None:
         """optax ``clip_by_global_norm``: ``g * max_norm / norm`` where
-        ``norm >= max_norm``, ``g`` unchanged below; stays on the device."""
-        norm = global_norm(grads)
+        ``norm >= max_norm``, ``g`` unchanged below; stays on the device.
+        Over a fold axis, each fold by its own norm."""
+        norm = global_norm(grads, fold_axis=self.fold_axis)
         scale = torch.where(norm < self.max_norm, torch.ones_like(norm),
                             self.max_norm / norm)
-        torch._foreach_mul_(grads, scale)
+        if not self.fold_axis:
+            torch._foreach_mul_(grads, scale)
+            return
+        for g in grads:
+            g.mul_(scale.view(-1, *[1] * (g.dim() - 1)))
 
     @torch.no_grad()
     def step(self) -> bool:

@@ -7,9 +7,10 @@ per-parameter gradient-norm TensorBoard scalars (``main.py:84-89``) and
 
 * :func:`trace` — a ``torch.profiler`` trace of a block, written as a
   Chrome/Perfetto trace file;
-* :class:`Throughput` — windows/s counter with an ETA;
+* :class:`Throughput` — windows/s counter (in all and per card) with an ETA;
 * :func:`global_norm` / :func:`grad_norms` — gradient telemetry that stays
-  on the device (the caller reads it once per epoch);
+  on the device (the caller reads it once per epoch), per fold over stacked
+  fold states;
 * :func:`model_summary` — parameter table per state_dict name;
 * :func:`nan_debug` — raise at the first NaN that autograd produces.
 """
@@ -19,7 +20,7 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from typing import Dict, Iterable, Iterator
+from typing import Dict, Iterable, Iterator, Mapping, Union
 
 import torch
 
@@ -42,10 +43,12 @@ def trace(log_dir: str) -> Iterator[None]:
 
 class Throughput:
     """Running windows/s counter with ETA (the reference's
-    ``cal_remaining_time`` loop instrumentation). Host clock: the caller
-    synchronises the card before :meth:`update` when it times device work."""
+    ``cal_remaining_time`` loop instrumentation); ``n_devices`` cards share
+    the windows (a data-parallel run). Host clock: the caller synchronises
+    the card before :meth:`update` when it times device work."""
 
-    def __init__(self):
+    def __init__(self, n_devices: int = 1):
+        self.n_devices = n_devices
         self.reset()
 
     def reset(self) -> None:
@@ -62,6 +65,10 @@ class Throughput:
         dt = time.perf_counter() - self._start
         return self._windows / dt if dt > 0 else 0.0
 
+    @property
+    def windows_per_sec_per_chip(self) -> float:
+        return self.windows_per_sec / max(self.n_devices, 1)
+
     def eta_seconds(self, remaining_steps: int) -> float:
         if len(self._laps) < 2:
             return float("inf")
@@ -69,19 +76,36 @@ class Throughput:
         return per_step * remaining_steps
 
 
-def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    """L2 norm over every element of every tensor, as one device scalar."""
+def _norm(x: torch.Tensor, fold_axis: bool) -> torch.Tensor:
+    """L2 norm of ``x``; with ``fold_axis`` one per slice of dim 0, as optax's
+    norms are per fold under ``vmap``."""
+    if fold_axis:
+        return torch.linalg.vector_norm(x.reshape(x.shape[0], -1), dim=1)
+    return torch.linalg.vector_norm(x)
+
+
+def global_norm(tensors: Iterable[torch.Tensor], fold_axis: bool = False) -> torch.Tensor:
+    """L2 norm over every element of every tensor, as one device scalar;
+    with ``fold_axis`` (tensors stacked along a leading fold axis, K folds)
+    the K folds' norms, shape ``(K,)``."""
     tensors = list(tensors)
     if not tensors:
         return torch.zeros(())
+    if fold_axis:
+        return _norm(torch.stack([_norm(t, True) for t in tensors], dim=1), True)
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
 
 
-def grad_norms(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+def grad_norms(params: Union[torch.nn.Module, Mapping[str, torch.Tensor]],
+               fold_axis: bool = False) -> Dict[str, torch.Tensor]:
     """Per-parameter L2 norms of the current gradients, keyed by the
-    parameter's state_dict name (the reference's key names)."""
-    return {name: torch.linalg.vector_norm(p.grad.detach())
-            for name, p in model.named_parameters() if p.grad is not None}
+    parameter's state_dict name (the reference's key names); ``params`` is a
+    model or its named parameters. With ``fold_axis`` (stacked fold states)
+    each norm is per fold, shape ``(K,)``."""
+    named = params.named_parameters() if isinstance(params, torch.nn.Module) \
+        else params.items()
+    return {name: _norm(p.grad.detach(), fold_axis)
+            for name, p in named if p.grad is not None}
 
 
 def model_summary(model: torch.nn.Module) -> str:

@@ -466,3 +466,50 @@ def test_export_on_the_card_matches_the_predictor_under_default_flags(cuda_devic
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
     want = Predictor(cfg, sd, batch_size=128, device=cuda_device).predict_logits(skel, sens)
     np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
+
+
+def _fold_states(cfg, folds, device):
+    from fall_multimodal_tpu_torch.train import build_optimizer, create_train_state
+    from fall_multimodal_tpu_torch.train.cv_vmapped import stack_states
+
+    opt = build_optimizer(cfg)
+    states = [create_train_state(cfg, opt, seed=cfg.seed + k, device=device)
+              for k in range(folds)]
+    return stack_states(states, opt, torch.Generator(device).manual_seed(cfg.seed)), opt
+
+
+@pytest.mark.cuda
+def test_vmapped_flagship_step_on_the_card_matches_the_cpu_and_the_single_fold_step(
+        cuda_device):  # noqa: F811
+    """Three full-width flagship folds, batch 32: one vmapped step on the card
+    against the same step on the CPU (loss 1e-4 relative: cuDNN vs CPU
+    summation); then three vmapped steps against the single-fold step of
+    each fold taken from the fold's stacked state (``load_fold``; loss 1e-5
+    relative: grouped vs plain convolutions)."""
+    from fall_multimodal_tpu_torch.data import gather_batch, make_synthetic, to_device
+    from fall_multimodal_tpu_torch.train import create_train_state, make_train_step
+    from fall_multimodal_tpu_torch.train.cv_vmapped import load_fold, make_fold_train_step
+
+    cfg = load_config(preset_path("gstcan_urfall_3stream"))
+    k = 3
+    data_np = make_synthetic(n_windows=256, num_classes=2, sensor_dim=4, seed=0)
+    rows = torch.as_tensor(np.random.default_rng(0).integers(0, 256, (3, k, 32)))
+    step = make_fold_train_step(softmax_before_ce=True)
+    losses = []
+    for dev in (cuda_device, torch.device("cpu")):
+        folds, _ = _fold_states(cfg, k, dev)
+        _, m = step(folds, to_device(data_np, dev), rows[0].to(dev))
+        losses.append(m["loss"].cpu())
+    np.testing.assert_allclose(losses[0].numpy(), losses[1].numpy(), rtol=1e-4)
+    data = to_device(data_np, cuda_device)
+    folds, opt = _fold_states(cfg, k, cuda_device)
+    singles = [create_train_state(cfg, opt, seed=cfg.seed + i, device=cuda_device)
+               for i in range(k)]
+    single = make_train_step(softmax_before_ce=True)
+    for r in rows.to(cuda_device):
+        for i, state in enumerate(singles):
+            load_fold(folds, i, state)
+        want = [float(single(s, gather_batch(data, r[i]))[1]["loss"])
+                for i, s in enumerate(singles)]
+        _, m = step(folds, data, r)
+        np.testing.assert_allclose(m["loss"].cpu().numpy(), want, rtol=1e-5)

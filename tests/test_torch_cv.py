@@ -128,6 +128,8 @@ def test_grid_search_keeps_grid_order_and_ranks():
 @pytest.mark.parametrize("argv", [
     ["--cv", "--resume", "x"], ["--grid", "--pretrained", "x"], ["--cv", "--test-only"],
     ["--grid", '{"embed_dim": [8]}', "--test-only"], ["--epochs", "0"],
+    ["--cv-mesh", "2"], ["--cv", "--cv-mesh", "2"], ["--cv-vmapped", "--mesh", "2"],
+    ["--cv-vmapped", "--resume", "x"], ["--cv-vmapped", "--test-only"],
 ])
 def test_flag_conflicts_are_rejected_before_data_loads(monkeypatch, argv):
     def boom(*a, **k):
