@@ -50,7 +50,16 @@ and device-busy ms beside the single-fold step's; ``cli.main
 windows, ``--cv-vmapped --cv-mesh 1`` against the unsharded run,
 ``cnn_bilstm`` vmapped over 10 folds, ``run_fold`` through a world-size-1
 NCCL mesh against the plain run; printed as a ``{"cv_parallel": ...}``
-line. Any failed check raises.
+line. Phase 11 takes fused epochs: one fused chunk of the flagship under
+``torch.cuda.set_sync_debug_mode("error")`` (no operation inside reads from
+the card); ``fit`` of the flagship (batch 32, 1,024 windows, 4 epochs) and
+of ``musa_harup`` (2 epochs) from one state per epoch, with
+``scan_epochs=True`` and with chunks of 2, curves and every field of the
+best and final states equal, windows/s of each; the fused best state served
+through ``Predictor`` (14 block-kernel launches) against the trainer's eval
+forward; the flagship's ``cross_validate_vmapped`` (5 folds x 2 epochs)
+fused against per epoch; the blocks no preset builds, card against CPU;
+printed as a ``{"fused": ...}`` line. Any failed check raises.
 The second-to-last line is a JSON object describing each kernel; the last
 line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -59,6 +68,7 @@ Imports nothing of JAX.
 
 from __future__ import annotations
 
+import copy
 import csv
 import dataclasses
 import json
@@ -112,17 +122,22 @@ from fall_multimodal_tpu_torch.server import PredictionServer
 from fall_multimodal_tpu_torch.train import (
     build_optimizer,
     create_train_state,
+    fit,
+    make_eval_epoch,
     make_train_epoch,
     make_train_step,
 )
+from fall_multimodal_tpu_torch.data.augment import make_augment_fn
 from fall_multimodal_tpu_torch.parallel import make_mesh
 from fall_multimodal_tpu_torch.train.cv import run_fold
 from fall_multimodal_tpu_torch.train.cv_vmapped import (
+    cross_validate_vmapped,
     fold_indices,
     load_fold,
     make_fold_train_step,
     stack_states,
 )
+from fall_multimodal_tpu_torch.train.loop import FusedEpochs
 from fall_multimodal_tpu_torch.utils.checkpoint import Checkpointer
 from fall_multimodal_tpu_torch.utils.device import full_float32
 
@@ -291,8 +306,6 @@ def train_steps_card_vs_cpu(cfg, sd, dev, defaults):
     amplifies float differences of tiny gradients into parameter steps of up
     to lr, so free-running losses part after the first step. Fails on a
     loss, a non-finite value, or if the caller's switches changed."""
-    import copy
-
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = defaults
     d = cfg.data
     data = make_synthetic(n_windows=96, num_classes=d.num_classes, sensor_dim=d.sensor_dim,
@@ -1171,6 +1184,259 @@ def cv_parallel_phase(dev, defaults, card):
                             "phase_s": phase_s, "card": card}}
 
 
+# ---- phase 11: fused epochs, the blocks no preset builds ----------------------
+
+FUSED_TOL = 1e-6         # fused vs per-epoch runs: the same operations, deterministic cuDNN
+FUSED_EPOCHS = 4
+
+
+def fit_from(cfg, splits, state0, dev, epochs, scan_epochs):
+    """``fit`` of ``cfg`` from a copy of ``state0`` with the scan impl:
+    (result, seconds, train windows/s of the run)."""
+    state = state0.snapshot()
+    b = cfg.train.batch_size
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = fit(state, splits, epochs=epochs, batch_size=b,
+                 num_classes=splits["train"].labels.shape[-1],
+                 label_smoothing=cfg.train.label_smoothing,
+                 softmax_before_ce=cfg.model.softmax_output, drop_last=cfg.train.drop_last,
+                 shuffle_seed=cfg.seed, epoch_impl="scan", scan_epochs=scan_epochs,
+                 augment_fn=make_augment_fn(cfg.augment, cfg.graph.layout))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    return result, run_s, splits["train"].n // b * b * epochs / run_s
+
+
+def state_diff(a, b):
+    """Max abs difference over every tensor of two train states (weights,
+    buffers, optimizer state and accumulators), and whether their host fields
+    (step counters, learning rates, generator state) are equal."""
+    errs = [float((x.double() - y.double()).abs().max()) for x, y
+            in zip(a.model.state_dict().values(), b.model.state_dict().values())]
+    oa, ob = a.optimizer.state_dict(), b.optimizer.state_dict()
+    same = (oa["inner"]["state"].keys() == ob["inner"]["state"].keys()
+            and oa["inner"]["param_groups"] == ob["inner"]["param_groups"]
+            and (oa["mini_step"], oa["gradient_step"]) == (ob["mini_step"], ob["gradient_step"])
+            and a.step == b.step
+            and torch.equal(a.generator.get_state(), b.generator.get_state()))
+    for i, entries in oa["inner"]["state"].items():
+        for key, v in entries.items():
+            w = ob["inner"]["state"].get(i, {}).get(key)
+            same = same and w is not None
+            if torch.is_tensor(v) and w is not None:
+                errs.append(float((v.double() - w.double().to(v.device)).abs().max()))
+    for x, y in zip(oa["acc"] or [], ob["acc"] or []):
+        errs.append(float((x - y).abs().max()))
+    return max(errs), same
+
+
+def curves_diff(a, b):
+    keys = ("train_loss", "train_acc", "val_loss", "val_acc")
+    if any(len(a.history[k]) != len(b.history[k]) for k in keys):
+        return float("inf")
+    return max(float(np.abs(np.subtract(a.history[k], b.history[k])).max(initial=0.0))
+               for k in keys)
+
+
+def fused_three_ways(preset, dev, card, epochs, windows=CV_WINDOWS):
+    """Phase 11a/11c: ``fit`` of ``preset`` at full width from one seeded state,
+    per epoch, ``scan_epochs=True`` and ``scan_epochs=2``: curves, best
+    accuracy and every field of the best and final states within FUSED_TOL;
+    windows/s of each run."""
+    cfg = load_config(preset_path(preset))
+    d = cfg.data
+    data = make_synthetic(n_windows=windows, num_classes=d.num_classes,
+                          sensor_dim=d.sensor_dim, seed=SEED)
+    splits = {k: to_device(v, dev) for k, v in split_dataset(data, seed=cfg.seed).items()}
+    steps = max(1, splits["train"].n // cfg.train.batch_size)
+    state0 = create_train_state(cfg, build_optimizer(cfg, steps_per_epoch=steps), seed=SEED,
+                                device=dev)
+    fit_from(cfg, splits, state0, dev, 1, True)          # warm-up: cuDNN's first calls
+    runs = {name: fit_from(cfg, splits, state0, dev, epochs, se)
+            for name, se in (("per_epoch", False), ("fused", True), ("fused_chunks_of_2", 2))}
+    base = runs["per_epoch"][0]
+    row = {"preset": preset, "epochs": epochs, "batch": cfg.train.batch_size,
+           "train_windows": splits["train"].n, "val_acc": base.history["val_acc"],
+           "train_loss": base.history["train_loss"], "card": card}
+    ok = True
+    for name, (result, run_s, rate) in runs.items():
+        row[f"{name}_s"] = run_s
+        row[f"{name}_windows_per_s"] = rate
+        if name == "per_epoch":
+            continue
+        best_err, best_same = state_diff(base.best_state, result.best_state)
+        final_err, final_same = state_diff(base.state, result.state)
+        err = max(curves_diff(base, result), best_err, final_err,
+                  abs(base.best_val_accuracy - result.best_val_accuracy),
+                  abs(base.test.accuracy - result.test.accuracy))
+        row[f"{name}_max_abs_diff"] = err
+        row[f"{name}_host_fields_equal"] = best_same and final_same
+        ok = ok and err <= FUSED_TOL and best_same and final_same
+    log(f"11: {preset} fit, {epochs} epochs, batch {cfg.train.batch_size}, "
+        f"{splits['train'].n} train windows: per epoch {row['per_epoch_s']:.2f} s "
+        f"({row['per_epoch_windows_per_s']:.1f} windows/s), fused {row['fused_s']:.2f} s "
+        f"({row['fused_windows_per_s']:.1f}), chunks of 2 {row['fused_chunks_of_2_s']:.2f} s "
+        f"({row['fused_chunks_of_2_windows_per_s']:.1f}); fused vs per epoch max abs diff "
+        f"{row['fused_max_abs_diff']:.3e} / {row['fused_chunks_of_2_max_abs_diff']:.3e}, "
+        f"host fields equal {row['fused_host_fields_equal']} / "
+        f"{row['fused_chunks_of_2_host_fields_equal']}; val acc {row['val_acc']} [{card}]")
+    if not ok:
+        raise AssertionError(f"{preset}: fused runs part from the per-epoch run: {row}")
+    return row, runs["fused"][0], cfg, data
+
+
+def sync_free_chunk(preset, dev):
+    """Phase 11b: one fused chunk of two epochs (the first allocates the best
+    copy) of ``preset`` at full width under ``torch.cuda.set_sync_debug_mode
+    ("error")``: no operation inside may wait for the card or read from it."""
+    cfg = load_config(preset_path(preset))
+    d = cfg.data
+    data = make_synthetic(n_windows=CV_WINDOWS, num_classes=d.num_classes,
+                          sensor_dim=d.sensor_dim, seed=SEED)
+    splits = {k: to_device(v, dev) for k, v in split_dataset(data, seed=cfg.seed).items()}
+    state = create_train_state(cfg, build_optimizer(cfg), seed=SEED, device=dev)
+    fused = FusedEpochs(
+        state, splits,
+        make_train_epoch(cfg.train.label_smoothing, cfg.model.softmax_output, impl="scan",
+                         augment_fn=make_augment_fn(cfg.augment, cfg.graph.layout)),
+        make_eval_epoch(d.num_classes, cfg.train.label_smoothing, cfg.model.softmax_output),
+        cfg.train.batch_size, cfg.train.drop_last, cfg.seed, -1.0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        curves = fused.chunk([1, 2])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    host = curves.cpu().numpy()
+    log(f"11b: {preset} fused chunk of 2 epochs under sync debug mode 'error': no "
+        f"synchronising operation; curves {host.round(4).tolist()}")
+    if not np.isfinite(host).all():
+        raise AssertionError(f"{preset}: the sync-free chunk went non-finite: {host}")
+    return {"preset": preset, "epochs": 2, "synchronising_ops": 0}
+
+
+def serve_fused_best(cfg, result, data, dev):
+    """Phase 11a: the fused run's best state served through ``Predictor`` (14
+    K1 launches a batch-128 forward) against the trainer's eval forward."""
+    pred = Predictor(cfg, result.best_state.model.state_dict(), batch_size=BATCH, device=dev)
+    skel, sens = data.features[:BATCH], data.sensors[:BATCH]
+    before = (fused_stgcan_block.launches, fused_backbone_forward.launches)
+    logits = pred.predict_logits(skel, sens)
+    launches = (fused_stgcan_block.launches - before[0],
+                fused_backbone_forward.launches - before[1])
+    model = result.best_state.model.eval()
+    with torch.no_grad(), full_float32():
+        ref = model(torch.from_numpy(skel).to(dev), torch.from_numpy(sens).to(dev)).cpu().numpy()
+    err = float(np.abs(logits - ref).max())
+    log(f"11a: fused best state served: stgcan_block {launches[0]}, fused_backbone "
+        f"{launches[1]} launches per batch-{BATCH} forward; vs the trainer's eval forward "
+        f"max_abs_err={err:.3e}")
+    if launches != (14, 0) or not err <= MODEL_TOL:
+        raise AssertionError(f"fused best state served through {launches} launches, off by {err}")
+    return {"launches": list(launches), "max_abs_err": err}
+
+
+def fused_cv(dev, card):
+    """Phase 11d: ``cross_validate_vmapped`` of the flagship, 5 folds x 2 epochs
+    on CV_WINDOWS windows, fused against per epoch: per-fold curves and
+    results within FUSED_TOL."""
+    cfg = load_config(preset_path("gstcan_urfall_3stream"), overrides={"train.epoch_impl": "scan"})
+    d = cfg.data
+    data = make_synthetic(n_windows=CV_WINDOWS, num_classes=d.num_classes,
+                          sensor_dim=d.sensor_dim, seed=SEED)
+    out = {}
+    for name, se in (("per_epoch", False), ("fused", True)):
+        curves = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = cross_validate_vmapped(
+            cfg, data, n_folds=CV_PARALLEL_FOLDS, epochs=2, scan_epochs=se, device=dev,
+            metrics_factory=lambda k, c=curves: (
+                lambda e, sc: c.setdefault(k, []).append(sorted(sc.items()))))
+        torch.cuda.synchronize()
+        out[name] = (res, curves, time.perf_counter() - t0)
+    (a, ca, sa), (b, cb, sb) = out["per_epoch"], out["fused"]
+    err = max(abs(x[m] - y[m]) for x, y in zip(a["folds"], b["folds"]) for m in x)
+    err = max([err] + [abs(u[1] - v[1]) for k in ca for p, q in zip(ca[k], cb[k])
+                       for u, v in zip(p, q)])
+    same_shape = ca.keys() == cb.keys() and all(len(ca[k]) == len(cb[k]) == 2 for k in ca)
+    log(f"11d: flagship cross_validate_vmapped, {CV_PARALLEL_FOLDS} folds x 2 epochs: per "
+        f"epoch {sa:.2f} s, fused {sb:.2f} s; curves and results max abs diff {err:.3e} "
+        f"[{card}]")
+    if not (err <= FUSED_TOL and same_shape):
+        raise AssertionError(f"fused CV parts from the per-epoch CV: {err}")
+    return {"folds": CV_PARALLEL_FOLDS, "epochs": 2, "per_epoch_s": sa, "fused_s": sb,
+            "max_abs_diff": err, "test_accuracy": [r["test_accuracy"] for r in b["folds"]]}
+
+
+def new_blocks_card_vs_cpu(dev):
+    """Phase 11e: the blocks no preset builds, card against CPU at the
+    ``skeleton_transformer_harup`` widths (embedding 32, 8 heads x 16) and
+    ``musa_harup``'s (128 channels after the first stage), eval and train
+    mode with every draw off, batch 32: MODEL_TOL."""
+    from fall_multimodal_tpu_torch.models import musa, skeleton_transformer as st
+
+    args = dict(head_dim=16, n_heads=8, n_joints=14, seq_len=30, ffn_dropout=0.0)
+    torch.manual_seed(SEED)
+    blocks = {
+        "B2TSpatialTemporalBlock(layernorm)": (
+            st.B2TSpatialTemporalBlock(32, **args, normalization="layernorm"), 32),
+        "PreNormBlock": (st.PreNormBlock(32, **args), 32),
+        "ParallelB2TBlock": (st.ParallelB2TBlock(32, **args), 32),
+        "GrowthBlock": (st.GrowthBlock(32, 16, 8, 14, 30, growth=16), 32),
+        "SepTemporalBlock(expand 2, no residual)": (
+            musa.SepTemporalBlock(128, 5, stride=2, expand_ratio=2, keep_prob=1.0,
+                                  residual=False), 128),
+    }
+    blocks["GrowthBlock"][0].block.feed_forward_network[3].p = 0.0
+    gen = torch.Generator().manual_seed(SEED)
+    rows = {}
+    for name, (block, c) in blocks.items():
+        x = torch.randn(32, 30, 14, c, generator=gen)
+        errs = []
+        for train in (False, True):
+            cpu_block = block.train(train)
+            card_block = copy.deepcopy(cpu_block).to(dev)
+            with torch.no_grad(), full_float32():
+                ref = cpu_block(x, torch.Generator().manual_seed(0))
+                out = card_block(x.to(dev), torch.Generator(dev).manual_seed(0)).cpu()
+            errs.append(float((out - ref).abs().max()))
+        rows[name] = {"eval_max_abs_err": errs[0], "train_max_abs_err": errs[1],
+                      "out_shape": list(ref.shape)}
+    log(f"11e: new blocks, card vs CPU, batch 32: {rows}")
+    if not all(max(r["eval_max_abs_err"], r["train_max_abs_err"]) <= MODEL_TOL
+               for r in rows.values()):
+        raise AssertionError(f"a new block parts from the CPU on the card: {rows}")
+    return rows
+
+
+def fused_phase(dev, card):
+    """Phase 11: fused epochs (the flagship three ways and served, a
+    sync-free chunk, musa, the fused CV) and the blocks no preset builds."""
+    t11 = time.perf_counter()
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        sync = sync_free_chunk("gstcan_urfall_3stream", dev)
+        fused_stgcan_block.launches = fused_backbone_forward.launches = 0
+        flagship, best, cfg, data = fused_three_ways("gstcan_urfall_3stream", dev, card,
+                                                     FUSED_EPOCHS)
+        served = serve_fused_best(cfg, best, data, dev)
+        launches = [fused_stgcan_block.launches, fused_backbone_forward.launches]
+        musa_row, _, _, _ = fused_three_ways("musa_harup", dev, card, 2)
+        cv_row = fused_cv(dev, card)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    blocks = new_blocks_card_vs_cpu(dev)
+    phase_s = time.perf_counter() - t11
+    log(f"phase 11: {phase_s:.1f} s; kernel launches on the fused flagship path "
+        f"(stgcan_block, fused_backbone): {launches}")
+    return {"fused": {"flagship": dict(flagship, served=served), "sync_free_chunk": sync,
+                      "musa": musa_row, "cv_vmapped": cv_row, "blocks": blocks,
+                      "kernel_launches": launches, "phase_s": phase_s, "card": card}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU", file=sys.stderr)
@@ -1493,12 +1759,16 @@ def main() -> int:
     # ---- phase 10: fold-parallel CV and data parallelism ---------------------
     cv_10 = cv_parallel_phase(dev, defaults, card)
 
+    # ---- phase 11: fused epochs, the blocks no preset builds -----------------
+    fused_11 = fused_phase(dev, card)
+
     log(json.dumps({"train": train_rows, "steps_card_vs_cpu": train_7a,
                     "train_then_serve": train_7b}))
     log(json.dumps({"families": families_8b, "fixtures": fixtures_8a, "k_copies": k_copies_8c,
                     "train_then_serve": served_8d, "train": train_8d, "card": card}))
     log(json.dumps(cv_9))
     log(json.dumps(cv_10))
+    log(json.dumps(fused_11))
     log(json.dumps({"kernels": [{
         "name": "stgcan_block",
         "route": "cuda",

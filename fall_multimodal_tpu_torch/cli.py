@@ -336,7 +336,8 @@ def _run_inner(args, cfg, out_dir, device, holder) -> Dict:
             results = cross_validate_vmapped(
                 cfg, data, n_folds=args.folds, epochs=args.epochs, logger=logger,
                 mesh=fold_mesh, grad_norms=args.grad_norms, metrics_factory=metrics_factory,
-                step_metrics_factory=step_metrics_factory, device=device)
+                step_metrics_factory=step_metrics_factory, scan_epochs=cfg.train.scan_epochs,
+                device=device)
         else:
             results = cross_validate(
                 cfg, data, n_folds=args.folds, epochs=args.epochs, logger=logger,

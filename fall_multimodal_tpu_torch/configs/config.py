@@ -9,8 +9,7 @@ derived from data when a dataset provides labels, never mutated in place
 
 This is the PyTorch port's own copy of ``fall_multimodal_tpu/configs/
 config.py``, schema unchanged, so that every preset and every training
-run's ``config.json`` parses the same in both packages. Fields that only the
-JAX trainer reads (``epoch_impl``, ``scan_epochs``) are kept for that reason.
+run's ``config.json`` parses the same in both packages.
 """
 
 from __future__ import annotations
@@ -33,16 +32,12 @@ class TrainConfig:
     eval_batch_size: Optional[int] = None
     dtype: str = "float32"           # compute dtype: float32 | bfloat16
     drop_last: bool = True           # static shapes: drop ragged final batch
-    # epoch execution: one lax.scan device call (TPU) vs a host loop over
-    # the jitted step (the XLA CPU backend runs scan carries ~6.5x slower
-    # than the same step standalone). auto = scan on accelerators, host
-    # loop on the cpu backend.
+    # epoch execution (train/loop.py:resolve_epoch_impl): auto = scan on the
+    # card, host on the cpu; with scan, fit() fuses the epochs by default
     epoch_impl: str = "auto"         # auto | scan | host
-    # fused-epoch chunking: when the scan impl fuses the whole run into one
-    # device program, an int bounds the epochs per device call (rounded to
-    # a divisor of n_epochs — see loop.equal_chunk). Long single executions
-    # and very large fused programs can crash this platform's TPU worker;
-    # None = fit()'s auto behavior (whole run in one call).
+    # fused epochs: True = the whole run, an int = chunks of that many epochs
+    # (rounded to a divisor of the epochs, loop.equal_chunk), one host read
+    # each; None = fit()'s auto behaviour
     scan_epochs: Optional[int] = None
 
 

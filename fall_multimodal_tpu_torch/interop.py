@@ -17,8 +17,10 @@ standalone STGCAN whose head is an ``fcn`` Linear); a file read by
 ``{"params", "batch_stats"}`` tree (as numpy arrays) into the same
 state_dict: it is the inverse of the JAX package's reference converters
 (``interop.py:_convert_stgcan`` ... ``_convert_cnn_bilstm``), so weights
-trained there serve here. Every path fails loudly on missing, unused or
-mis-shaped keys.
+trained there serve here. :func:`optimizer_state_from_jax` carries the optax
+state of a JAX train state into the port's optimizer, each per-parameter
+leaf through its parameter's layout transform, so a JAX run resumes here.
+Every path fails loudly on missing, unused or mis-shaped keys.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ __all__ = [
     "load_into",
     "load_state_dict_file",
     "normalize_reference_keys",
+    "optimizer_state_from_jax",
     "state_dict_from_jax_variables",
 ]
 
@@ -429,14 +432,10 @@ class _Writer:
                 self.b2t_st_block(_join(theirs, f"extractor.{i}"), *ours, f"block{i}")
 
 
-def state_dict_from_jax_variables(config: Config,
-                                  variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
-    """The port's state_dict for ``config``'s model from the JAX package's
-    flax variables ``{"params": ..., "batch_stats": ...}`` (numpy leaves).
-
-    Raises if a flax leaf is left unused or the result does not fit the
-    port's model key for key and shape for shape.
-    """
+def _write_jax_variables(config: Config, variables: Mapping[str, Any]):
+    """``(model, {torch name: array})``: ``config``'s model and every flax leaf
+    of ``variables`` written under the port's names by :class:`_Writer`;
+    raises if a flax leaf is left unused."""
     from fall_multimodal_tpu_torch.models import (
         TARGCN,
         MusaModel,
@@ -489,5 +488,181 @@ def state_dict_from_jax_variables(config: Config,
     unused = w.p.unused() | w.s.unused()
     if unused:
         raise ValueError(f"flax variables not consumed: {_format_keys(unused)}")
-    load_into(model, w.sd)   # validates names and shapes against the port's model
-    return {k: w.sd[k] for k in model.state_dict()}
+    return model, w.sd
+
+
+def state_dict_from_jax_variables(config: Config,
+                                  variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """The port's state_dict for ``config``'s model from the JAX package's
+    flax variables ``{"params": ..., "batch_stats": ...}`` (numpy leaves).
+
+    Raises if a flax leaf is left unused or the result does not fit the
+    port's model key for key and shape for shape.
+    """
+    model, sd = _write_jax_variables(config, variables)
+    load_into(model, sd)   # validates names and shapes against the port's model
+    return {k: sd[k] for k in model.state_dict()}
+
+
+# ------------------------------------------------ optax state -> torch
+
+def _flat_leaves(tree, prefix=()):
+    """``[(path, leaf)]`` of a nested mapping, in sorted key order."""
+    if isinstance(tree, Mapping):
+        out = []
+        for k in sorted(tree):
+            out.extend(_flat_leaves(tree[k], prefix + (k,)))
+        return out
+    return [(prefix, np.asarray(tree))]
+
+
+def _parameter_gathers(config: Config, params: Mapping[str, Any],
+                       batch_stats: Mapping[str, Any]):
+    """``(names, gathers)``: the port's trainable parameter names in the
+    optimizer's order, and for each an index array into the concatenated
+    flax parameter leaves, made by running :class:`_Writer` over leaves that
+    hold their own element indices. Each gather must be a permutation of one
+    whole leaf, and every leaf must feed exactly one parameter: then a
+    params-shaped optax leaf is carried exactly as its parameter is."""
+    leaves = _flat_leaves(params)
+    offsets = np.cumsum([0] + [leaf.size for _, leaf in leaves])
+    index_tree: Dict[str, Any] = {}
+    for (path, leaf), off in zip(leaves, offsets):
+        node = index_tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.arange(off, off + leaf.size, dtype=np.int64).reshape(leaf.shape)
+    model, sd = _write_jax_variables(config, {"params": index_tree,
+                                              "batch_stats": batch_stats})
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    gathers, fed = [], set()
+    for name in names:
+        idx = np.asarray(sd[name])
+        j = int(np.searchsorted(offsets, idx.min(), side="right")) - 1 if idx.size else -1
+        whole = (idx.dtype == np.int64 and j >= 0 and idx.size == leaves[j][1].size
+                 and np.array_equal(np.sort(idx, axis=None),
+                                    np.arange(offsets[j], offsets[j + 1])))
+        if not whole or j in fed:
+            raise ValueError(f"parameter {name!r} is not a permutation of one flax leaf; "
+                             "its optimizer state cannot be carried")
+        fed.add(j)
+        gathers.append(idx)
+    if len(fed) != len(leaves):
+        missing = [".".join(leaves[j][0]) for j in range(len(leaves)) if j not in fed]
+        raise ValueError(f"flax parameters without a trainable counterpart: {missing}")
+    return names, gathers, [path for path, _ in leaves]
+
+
+def _optax_parts(node, path=()) -> Dict[str, Any]:
+    """Walk an optax state (NamedTuples, tuples, params-shaped mappings) and
+    collect what the port's optimizer keeps: the moment trees by torch name,
+    the update counts, the accumulation state. Only states the JAX package's
+    ``build_optimizer`` makes are recognised; any other is refused, named
+    by its path."""
+    parts: Dict[str, Any] = {"moments": {}, "counts": [], "multi_steps": None}
+
+    def walk(x, where):
+        name = type(x).__name__
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            if not x._fields:                                  # EmptyState and kin
+                return
+            if name == "TorchRmsState":
+                parts["moments"]["square_avg"] = x.square_avg
+            elif name == "ScaleByAdamState":
+                parts["counts"].append(int(np.asarray(x.count)))
+                parts["moments"]["exp_avg"] = x.mu
+                parts["moments"]["exp_avg_sq"] = x.nu
+            elif name == "TraceState":
+                parts["moments"]["momentum_buffer"] = x.trace
+            elif name == "ScaleByScheduleState":
+                parts["counts"].append(int(np.asarray(x.count)))
+            elif name == "MultiStepsState" and not x.skip_state:
+                parts["multi_steps"] = x
+                walk(x.inner_opt_state, where + ("inner_opt_state",))
+            else:
+                raise ValueError(f"optax state {name} at {'/'.join(map(str, where)) or '.'} "
+                                 "has no counterpart in the port's optimizer")
+        elif isinstance(x, (tuple, list)):
+            for i, y in enumerate(x):
+                walk(y, where + (i,))
+        else:
+            raise ValueError(f"optax state leaf {'/'.join(map(str, where)) or '.'} "
+                             f"({name}) is not a recognised optimizer state")
+
+    walk(node, path)
+    return parts
+
+
+_MOMENTS = {"rmsprop": ("square_avg",), "rms": ("square_avg",),
+            "adam": ("exp_avg", "exp_avg_sq"), "adamw": ("exp_avg", "exp_avg_sq")}
+
+
+def optimizer_state_from_jax(config: Config, opt_state: Any, params: Mapping[str, Any],
+                             batch_stats: Mapping[str, Any], step: int) -> Dict[str, Any]:
+    """The port's :meth:`~fall_multimodal_tpu_torch.train.optim.Optimizer.
+    state_dict` (CPU tensors) for ``config`` from a JAX train state's optax
+    ``opt_state`` (its NamedTuples with numpy leaves), ``params`` and
+    ``batch_stats`` (numpy leaves) and ``step`` (``TrainState.step``, the
+    micro-steps taken). Nothing of JAX or optax is imported.
+
+    The chain the JAX package's ``train/optim.py:120-174`` builds maps as:
+
+    * ``TorchRmsState.square_avg`` -> RMSprop's ``square_avg``;
+    * ``ScaleByAdamState(count, mu, nu)`` -> Adam's ``step``, ``exp_avg``,
+      ``exp_avg_sq``;
+    * ``TraceState.trace`` (SGD momentum) -> ``momentum_buffer``;
+    * ``ScaleByScheduleState.count`` -> the updates taken (the port's
+      ``gradient_step`` and torch's ``step``); without one (a constant lr,
+      no Adam), ``step // accum_iter``;
+    * ``MultiStepsState(mini_step, gradient_step, acc_grads)`` ->
+      ``mini_step``, ``gradient_step`` and the accumulators ``acc``;
+    * the clip and weight-decay stages keep no state.
+
+    Each per-parameter leaf is carried through its parameter's layout
+    transform (:func:`_parameter_gathers`), by name. Any other optax state,
+    and a moment the config's optimizer does not keep, are refused.
+    """
+    from fall_multimodal_tpu_torch.models import build_model
+    from fall_multimodal_tpu_torch.train.optim import build_optimizer
+
+    names, gathers, paths = _parameter_gathers(config, params, batch_stats)
+    parts = _optax_parts(opt_state)
+    kind = config.optim.type
+    want = _MOMENTS.get(kind, ("momentum_buffer",) if config.optim.momentum else ())
+    if set(parts["moments"]) != set(want):
+        raise ValueError(f"optax state holds {sorted(parts['moments'])}; the port's {kind!r} "
+                         f"optimizer keeps {sorted(want)}")
+
+    def carry(tree):
+        flat_leaves = _flat_leaves(tree)
+        if [p for p, _ in flat_leaves] != paths:
+            raise ValueError("an optax moment tree does not have the parameters' structure")
+        flat = np.concatenate([leaf.reshape(-1) for _, leaf in flat_leaves])
+        return [torch.from_numpy(np.ascontiguousarray(flat[g])) for g in gathers]
+
+    accum = max(1, int(config.train.accum_iter or 1))
+    multi = parts["multi_steps"]
+    counts = set(parts["counts"])
+    if multi is not None:
+        counts.add(int(np.asarray(multi.gradient_step)))
+    if len(counts) > 1:
+        raise ValueError(f"optax update counts disagree: {sorted(counts)}")
+    updates = counts.pop() if counts else int(step) // accum
+    if (multi is not None) != (accum > 1):
+        raise ValueError(f"optax state {'has' if multi is not None else 'lacks'} MultiSteps "
+                         f"but train.accum_iter is {accum}")
+
+    optimizer = build_optimizer(config).init(build_model(config).parameters())
+    moments = {key: carry(tree) for key, tree in parts["moments"].items()}
+    for i, p in enumerate(optimizer.params):
+        entry = {key: v[i] for key, v in moments.items()}
+        if kind in _MOMENTS:
+            entry["step"] = torch.tensor(float(updates))
+        if entry:
+            optimizer.inner.state[p] = entry
+    optimizer.gradient_step = updates
+    if multi is not None:
+        optimizer.mini_step = int(np.asarray(multi.mini_step))
+        for a, v in zip(optimizer.acc, carry(multi.acc_grads)):
+            a.copy_(v)
+    return optimizer.state_dict()

@@ -117,13 +117,14 @@ class _DropGraphBlock(nn.Module):
     def graph(self) -> torch.Tensor:
         return self.A * self.edge if self.edge is not None else self.A
 
-    def drop(self, y, res, generator):
-        """DropGraph on both branches in train mode (``keep_prob < 1``)."""
+    def drop(self, generator, *branches):
+        """DropGraph on each branch (the main one, then the residual) in
+        train mode (``keep_prob < 1``)."""
         if not self.training or self.keep_prob >= 1.0:
-            return y, res
+            return branches
         A = self.graph()
         out = []
-        for z in (y, res):
+        for z in branches:
             z = drop_block_ske(z, self.keep_prob, A, generator)
             out.append(drop_block_t(z, self.keep_prob, self.block_size, generator))
         return tuple(out)
@@ -148,36 +149,47 @@ class MusaSpatialGraphConv(_DropGraphBlock):
     def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         res = self.residual(x) if self.residual is not None else x
         y = self.bn(_graph_apply(self.gcn(x), self.graph()))
-        y, res = self.drop(y, res, generator)
+        y, res = self.drop(generator, y, res)
         return self.act(y + res)
 
 
 class SepTemporalBlock(_DropGraphBlock):
-    """``depth_conv`` (depthwise (k,1), BN) -> activation -> ``point_conv``
-    (1x1, BN); DropGraph on both branches; the residual is ``x`` at stride 1
-    and ``residual.{0,1}`` (1x1 + BN on ``x[:, ::stride]``) at stride 2
-    (``musa_model.py:148-199``)."""
+    """[``expand_conv`` (1x1 to ``channels * expand_ratio``, BN) ->
+    activation] -> ``depth_conv`` (depthwise (k,1), BN) -> activation ->
+    ``point_conv`` (1x1 back to ``channels``, BN); DropGraph on both
+    branches; the residual is ``x`` at stride 1 and ``residual.{0,1}`` (1x1
+    + BN on ``x[:, ::stride]``) at stride 2, or none with ``residual=False``
+    (then DropGraph takes the main branch only) (``musa_model.py:148-199``;
+    registered models build ``expand_ratio=0`` with a residual)."""
 
     def __init__(self, channels: int, temporal_window: int = 3, stride: int = 1,
-                 act_type: str = "relu", keep_prob: float = 0.9, block_size: int = 41,
-                 edge: bool = True, bias: bool = True, graph_layout: str = "coco_cut",
+                 expand_ratio: int = 0, act_type: str = "relu", keep_prob: float = 0.9,
+                 block_size: int = 41, edge: bool = True, bias: bool = True,
+                 residual: bool = True, graph_layout: str = "coco_cut",
                  graph_strategy: str = "uniform"):
         super().__init__(act_type, keep_prob, block_size, edge, graph_layout, graph_strategy)
         self.stride = stride
+        self.use_residual = residual
+        inner = channels * expand_ratio if expand_ratio > 0 else channels
+        self.expand_conv = (nn.Sequential(Conv1x1(channels, inner, bias=bias), BatchNorm(inner))
+                            if expand_ratio > 0 else None)
         self.depth_conv = nn.Sequential(
-            TemporalConv(channels, channels, temporal_window, stride, bias=bias,
-                         groups=channels),
-            BatchNorm(channels))
-        self.point_conv = nn.Sequential(Conv1x1(channels, channels, bias=bias),
+            TemporalConv(inner, inner, temporal_window, stride, bias=bias, groups=inner),
+            BatchNorm(inner))
+        self.point_conv = nn.Sequential(Conv1x1(inner, channels, bias=bias),
                                         BatchNorm(channels))
         self.residual = (nn.Sequential(Conv1x1(channels, channels, bias=bias),
                                        BatchNorm(channels))
-                         if stride != 1 else None)
+                         if residual and stride != 1 else None)
 
     def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        y = x if self.expand_conv is None else self.act(self.expand_conv(x))
+        y = self.point_conv(self.act(self.depth_conv(y)))
+        if not self.use_residual:
+            (y,) = self.drop(generator, y)
+            return self.act(y)
         res = x if self.residual is None else self.residual(x[:, :: self.stride])
-        y = self.point_conv(self.act(self.depth_conv(x)))
-        y, res = self.drop(y, res, generator)
+        y, res = self.drop(generator, y, res)
         return self.act(y + res)
 
 

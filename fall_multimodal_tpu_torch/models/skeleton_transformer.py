@@ -6,9 +6,10 @@ Counterpart of ``fall_multimodal_tpu/models/skeleton_transformer.py``
 stack of B2T ("bottom-to-top residual") blocks that attend over the joints,
 then over the frames, then apply an FFN, with stochastic depth ramping
 0 -> 0.5 across the blocks, and a pooled 1x1 head; the factorised Ablation1
-(single-axis B2T blocks: all spatial, then all temporal ones). The JAX
-package's pre-norm, parallel and growth blocks are built by no registered
-model and are not ported.
+(single-axis B2T blocks: all spatial, then all temporal ones). The
+reference's other blocks, which no registered model builds, are here as
+well: the pre-norm block, the parallel spatial+temporal block, the
+DenseNet-style growth block, and the B2T block with LayerNorms.
 
 Parameter names are the reference's: ``embedding.{0,2}``;
 ``extractor.{i}.multi_head_{spatial,temporal}_self_attention.{w_qkv,merge,
@@ -23,7 +24,7 @@ train-mode forward is given.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -101,27 +102,38 @@ class FFN(nn.Sequential):
         return self[3](self[2](self[1](self[0](x))), generator)
 
 
+def _norm(kind: str, channels: int) -> Union[BatchNorm, nn.LayerNorm]:
+    """``"batchnorm"`` (the reference's BatchNorm3d over the (N, M, T, V)
+    rows) or ``"layernorm"`` over the channels."""
+    if kind == "batchnorm":
+        return BatchNorm(channels)
+    if kind == "layernorm":
+        return nn.LayerNorm(channels, eps=1e-5)
+    raise ValueError(f"normalization must be batchnorm|layernorm, got {kind!r}")
+
+
 class B2TSpatialTemporalBlock(nn.Module):
     """Spatial MHSA -> temporal MHSA -> FFN, each branch through stochastic
-    depth and a BatchNorm (the reference's BatchNorm3d over the (N, M, T, V)
-    rows), and the B2T residual back to the block's input
-    (``skeleton_transformer.py:229-248``)."""
+    depth and a norm (``normalization``: ``"batchnorm"``, as every
+    registered model builds it, or ``"layernorm"``), and the B2T residual
+    back to the block's input (``skeleton_transformer.py:229-248``)."""
 
     def __init__(self, channels: int, head_dim: int, n_heads: int, n_joints: int,
                  seq_len: int, ffn_expand: float = 4.0, ffn_dropout: float = 0.5,
-                 sd_rate: float = 0.0, attn_impl: str = "resident"):
+                 normalization: str = "batchnorm", sd_rate: float = 0.0,
+                 attn_impl: str = "resident"):
         super().__init__()
         if attn_impl not in ("resident", "swap"):
             raise ValueError(f"attn_impl must be resident|swap, got {attn_impl!r}")
         self.sd_rate = sd_rate
         self.multi_head_spatial_self_attention = RelPosMHSA(channels, head_dim, n_heads,
                                                             n_joints)
-        self.norm1 = BatchNorm(channels)
+        self.norm1 = _norm(normalization, channels)
         self.multi_head_temporal_self_attention = RelPosMHSA(channels, head_dim, n_heads,
                                                              seq_len, axis=-3)
-        self.norm2 = BatchNorm(channels)
+        self.norm2 = _norm(normalization, channels)
         self.feed_forward_network = FFN(channels, ffn_expand, ffn_dropout)
-        self.norm3 = BatchNorm(channels)
+        self.norm3 = _norm(normalization, channels)
 
     def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         def sd(y):
@@ -151,6 +163,72 @@ class B2TBlock(nn.Module):
         out = self.norm1(x + self.multi_head_spatial_self_attention(x))
         out = out + self.feed_forward_network(out, generator)
         return self.norm3(x + out)
+
+
+class PreNormBlock(nn.Module):
+    """Pre-norm spatial+temporal block (``skeleton_transformer.py:159-200``):
+    a LayerNorm before the spatial MHSA, the temporal MHSA and the FFN, plain
+    residuals around the two attentions, and ``norm4`` applied to the FFN's
+    output: the reference returns the normalised branch, not the residual
+    sum."""
+
+    def __init__(self, channels: int, head_dim: int, n_heads: int, n_joints: int,
+                 seq_len: int, ffn_expand: float = 4.0, ffn_dropout: float = 0.5):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(channels, eps=1e-5)
+        self.multi_head_spatial_self_attention = RelPosMHSA(channels, head_dim, n_heads,
+                                                            n_joints)
+        self.norm2 = nn.LayerNorm(channels, eps=1e-5)
+        self.multi_head_temporal_self_attention = RelPosMHSA(channels, head_dim, n_heads,
+                                                             seq_len, axis=-3)
+        self.norm3 = nn.LayerNorm(channels, eps=1e-5)
+        self.feed_forward_network = FFN(channels, ffn_expand, ffn_dropout)
+        self.norm4 = nn.LayerNorm(channels, eps=1e-5)
+
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        x = x + self.multi_head_spatial_self_attention(self.norm1(x))
+        x = x + self.multi_head_temporal_self_attention(self.norm2(x))
+        return self.norm4(self.feed_forward_network(self.norm3(x), generator))
+
+
+class ParallelB2TBlock(nn.Module):
+    """Spatial and temporal MHSA side by side on the block's input, then
+    ``norm1``, the FFN, the B2T residual and ``norm3``
+    (``skeleton_transformer.py:253-286``)."""
+
+    def __init__(self, channels: int, head_dim: int, n_heads: int, n_joints: int,
+                 seq_len: int, ffn_expand: float = 4.0, ffn_dropout: float = 0.5):
+        super().__init__()
+        self.multi_head_spatial_self_attention = RelPosMHSA(channels, head_dim, n_heads,
+                                                            n_joints)
+        self.multi_head_temporal_self_attention = RelPosMHSA(channels, head_dim, n_heads,
+                                                             seq_len, axis=-3)
+        self.norm1 = nn.LayerNorm(channels, eps=1e-5)
+        self.feed_forward_network = FFN(channels, ffn_expand, ffn_dropout)
+        self.norm3 = nn.LayerNorm(channels, eps=1e-5)
+
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        out = self.norm1(x + self.multi_head_spatial_self_attention(x)
+                         + self.multi_head_temporal_self_attention(x))
+        out = out + self.feed_forward_network(out, generator)
+        return self.norm3(x + out)
+
+
+class GrowthBlock(nn.Module):
+    """DenseNet-style growth (``skeleton_transformer.py:322-348``): a spatial
+    B2T ``block``, then ``growth`` (Linear to ``growth`` channels, exact
+    GELU, LayerNorm), concatenated to the input: C -> C + growth
+    channels."""
+
+    def __init__(self, channels: int, head_dim: int, n_heads: int, n_joints: int,
+                 seq_len: int, growth: int = 16):
+        super().__init__()
+        self.block = B2TBlock(channels, head_dim, n_heads, n_joints)
+        self.growth = nn.Sequential(nn.Linear(channels, growth), nn.GELU(),
+                                    nn.LayerNorm(growth, eps=1e-5))
+
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        return torch.cat([x, self.growth(self.block(x, generator))], dim=-1)
 
 
 class TransposeAxis(nn.Module):

@@ -56,7 +56,7 @@ from fall_multimodal_tpu_torch.data.splits import kfold_indices, stratified_kfol
 from fall_multimodal_tpu_torch.data.synthetic import WindowedDataset
 from fall_multimodal_tpu_torch.train.cv import cv_results, fold_row
 from fall_multimodal_tpu_torch.train.losses import cross_entropy_per_sample
-from fall_multimodal_tpu_torch.train.loop import _precision
+from fall_multimodal_tpu_torch.train.loop import _precision, equal_chunk, resolve_epoch_impl
 from fall_multimodal_tpu_torch.train.metrics import prf_from_confusion
 from fall_multimodal_tpu_torch.train.optim import Optimizer, build_optimizer
 from fall_multimodal_tpu_torch.train.state import TrainState, create_train_state
@@ -195,8 +195,9 @@ def make_fold_eval(num_classes: int, label_smoothing: float = 0.0,
                         tensors, batch.features, batch.sensors)
                     target = batch.labels.argmax(-1)
                     flat = offset + target * c + logits.argmax(-1)
-                    cm += torch.bincount(flat.reshape(-1), weights=mask[:, s].reshape(-1),
-                                         minlength=k * c * c)
+                    # not bincount, which reads its input's maximum back to
+                    # the host on the card; the 0/1 mask keeps counts exact
+                    cm.index_add_(0, flat.reshape(-1), mask[:, s].reshape(-1))
                     per_sample = cross_entropy_per_sample(
                         logits.flatten(0, 1), batch.labels.flatten(0, 1),
                         label_smoothing, softmax_before_ce).view(idx.shape[0], -1)
@@ -262,15 +263,21 @@ def cross_validate_vmapped(
     ``train.dtype: bfloat16`` runs the forwards under autocast.
     ``grad_norms`` with ``step_metrics_factory(k)`` streams fold ``k``'s
     per-parameter gradient norms per step, read once per epoch;
-    ``metrics_factory(k)`` gets fold ``k``'s epoch curves. ``scan_epochs``
-    (the whole run as one device program) and ``train.epoch_impl: scan``
-    have no counterpart in the port and raise; None picks the per-epoch
-    host driver.
+    ``metrics_factory(k)`` gets fold ``k``'s epoch curves.
+
+    ``scan_epochs`` (default: auto, as JAX ``cv_vmapped.py:257-345``) fuses
+    the epochs: the whole run (``True``) or chunks of
+    :func:`~fall_multimodal_tpu_torch.train.loop.equal_chunk` epochs (an
+    int), each with one host read per device; every fold's best tensors
+    are gated on the device (``(acc > best) & isfinite(loss)`` per fold);
+    ``metrics_factory(k)`` gets fold ``k``'s curves after each read. The
+    epochs' index matrices are drawn up front from the same generator as
+    the per-epoch driver's, so both take the same batches and give the same
+    results. ``None`` turns it on when ``train.epoch_impl`` resolves to
+    ``"scan"`` (``auto`` on the card) and no gradient norms are streamed;
+    ``True`` with them raises. Over a fold ``mesh`` the groups run their
+    chunks one after another, each on its own card.
     """
-    if scan_epochs or config.train.epoch_impl not in ("auto", "host"):
-        raise ValueError(
-            "scan_epochs / epoch_impl='scan' fuse epochs into one device program; the "
-            "PyTorch port drives every step from the host and has no counterpart yet")
     n_folds = n_folds or config.data.n_folds
     epochs = epochs or config.train.epochs
     batch = config.train.batch_size
@@ -284,6 +291,13 @@ def cross_validate_vmapped(
             raise ValueError(f"n_folds={n_folds} must divide evenly over the "
                              f"{len(devices)}-device mesh")
     groups = np.array_split(np.arange(n_folds), len(devices))
+    impl = resolve_epoch_impl(config.train.epoch_impl, devices[0])
+    if scan_epochs is None:
+        scan_epochs = impl == "scan" and not grad_norms and step_metrics_factory is None
+    if scan_epochs and (impl != "scan" or grad_norms or step_metrics_factory is not None):
+        raise ValueError(
+            "scan_epochs=True needs the scan epoch impl and no per-step gradient-norm "
+            "streaming (per-step tensors for every epoch cannot ride one read)")
 
     steps = max(1, min(len(f["train"]) for f in folds) // batch)
     optimizer = build_optimizer(config.optim, scheduler=config.lr_scheduler,
@@ -319,7 +333,15 @@ def cross_validate_vmapped(
     best_acc = np.full(n_folds, -1.0)
     best = [fs.snapshot() for fs in shards]
     epoch_s = 0.0
-    for epoch_i in range(1, epochs + 1):
+    if scan_epochs:
+        best_acc, epoch_s = _fused_epochs(
+            shards, shard_data, devices, groups, eval_parts, best, rng, folds, steps, batch,
+            epochs, scan_epochs, train_step, evaluate, eval_counts, metrics_factory)
+        if logger:
+            logger.info(f"[vmapped CV, fused] {epochs} epochs x {n_folds} folds, one read per "
+                        f"chunk; mean best val acc {best_acc.mean():.4f}")
+    epoch_numbers = range(0) if scan_epochs else range(1, epochs + 1)
+    for epoch_i in epoch_numbers:
         t0 = time.perf_counter()
         idx = epoch_index_matrix(rng, folds, steps, batch)
         parts = [torch.as_tensor(idx[g], device=d) for d, g in zip(devices, groups)]
@@ -375,3 +397,63 @@ def cross_validate_vmapped(
                     f"{best_acc.mean():.4f}")
     return cv_results([fold_row(k, best_acc[k], prf_from_confusion(cms[k]))
                        for k in range(n_folds)])
+
+
+def _fused_epochs(shards, shard_data, devices, groups, eval_parts, best, rng, folds, steps,
+                  batch, epochs, scan_epochs, train_step, evaluate, eval_counts,
+                  metrics_factory):
+    """:func:`cross_validate_vmapped`'s fused epochs: chunks of
+    :func:`equal_chunk` epochs, each group's chunk run on its device with no
+    read inside it, then one read per group. Gates ``best`` (each group's
+    stacked tensors) in place and returns ``(best val accuracy per fold,
+    seconds of epochs)``."""
+    idx_all = np.stack([epoch_index_matrix(rng, folds, steps, batch) for _ in range(epochs)])
+    parts = [torch.as_tensor(idx_all[:, g], device=d) for d, g in zip(devices, groups)]
+    best_dev = [torch.full((len(g),), -1.0, dtype=torch.float64, device=d)
+                for d, g in zip(devices, groups)]
+
+    @torch.no_grad()
+    def gate(fs, best_i, best_acc, accs, loss):
+        improved = (accs.double() > best_acc) & torch.isfinite(loss)
+        for name, new in fs.tensors().items():
+            torch.where(improved.view(-1, *[1] * (new.dim() - 1)), new.detach(),
+                        best_i[name], out=best_i[name])
+        torch.where(improved, accs.double(), best_acc, out=best_acc)
+        return improved
+
+    def group_chunk(i, epoch_range):
+        fs, data = shards[i], shard_data[i]
+        rows = []
+        for e in epoch_range:
+            metrics = [train_step(fs, data, parts[i][e, :, s])[1] for s in range(steps)]
+            loss = torch.stack([m["loss"] for m in metrics]).mean(0)
+            acc = torch.stack([m["accuracy"] for m in metrics]).mean(0)
+            cm, loss_sum = evaluate(fs.model, fs.tensors(), data, *eval_parts[i])
+            accs = (cm.diagonal(dim1=-2, dim2=-1).sum(-1)
+                    / cm.sum((-2, -1)).clamp(min=1.0))
+            improved = gate(fs, best[i], best_dev[i], accs, loss)
+            rows.append(torch.stack([loss, acc, loss_sum, accs, improved.float()]))
+        return torch.stack(rows)                        # (epochs, 5, folds of the group)
+
+    chunk = equal_chunk(epochs, epochs if scan_epochs is True else max(1, int(scan_epochs)))
+    curves, epoch_s = [], 0.0
+    for s in range(0, epochs, chunk):
+        t0 = time.perf_counter()
+        out = [group_chunk(i, range(s, s + chunk)) for i in range(len(shards))]
+        curves.append(np.concatenate([c.cpu().numpy() for c in out], axis=2))
+        epoch_s += time.perf_counter() - t0
+        if metrics_factory is not None:
+            for k in range(len(folds)):
+                cb = metrics_factory(k)
+                if cb is None:
+                    continue
+                for e, row in enumerate(curves[-1]):
+                    cb(s + e + 1, {"train_loss": float(row[0, k]),
+                                   "train_accuracy": float(row[1, k]),
+                                   "val_loss": float(row[2, k] / eval_counts[k]),
+                                   "val_accuracy": float(row[3, k])})
+    hist = np.concatenate(curves)                         # (epochs, 5, K)
+    best_acc = np.full(len(folds), -1.0)
+    for row in hist:
+        best_acc = np.where(row[4] > 0, row[3], best_acc)
+    return best_acc, epoch_s

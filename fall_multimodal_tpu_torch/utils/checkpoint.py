@@ -10,7 +10,10 @@ Each is a directory holding one torch file, ``checkpoint.pt``:
   :class:`~fall_multimodal_tpu_torch.serve.Predictor` serves it;
 * ``optimizer``: the optimizer's state (the torch optimizer's, plus the
   accumulation buffers and step counters);
-* ``step``, ``epoch``, ``best_acc`` and the run generator's state.
+* ``step``, ``epoch``, ``best_acc`` and the run generator's state, or an
+  int seed for it (a checkpoint converted from the JAX package, whose
+  ``jax.random`` key has no torch counterpart:
+  ``experiments/convert_jax_checkpoint.py``).
 
 Saving writes a temporary directory first and swaps it in; a crash inside
 the swap leaves the previous checkpoint under ``<name>.prev``, which
@@ -86,7 +89,11 @@ class Checkpointer:
         template.model.load_state_dict(payload["model"], strict=True)
         template.optimizer.load_state_dict(payload["optimizer"])
         template.step = int(payload["step"])
-        template.generator.set_state(payload["generator"].cpu())
+        generator = payload["generator"]
+        if isinstance(generator, int):
+            template.generator.manual_seed(generator)
+        else:
+            template.generator.set_state(generator.cpu())
         return template, int(payload["epoch"]), float(payload["best_acc"])
 
     def has(self, name: str) -> bool:

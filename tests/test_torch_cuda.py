@@ -513,3 +513,40 @@ def test_vmapped_flagship_step_on_the_card_matches_the_cpu_and_the_single_fold_s
                 for i, s in enumerate(singles)]
         _, m = step(folds, data, r)
         np.testing.assert_allclose(m["loss"].cpu().numpy(), want, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_fused_fit_on_the_card_equals_the_per_epoch_fit(cuda_device):  # noqa: F811
+    """``cnn_bilstm`` at its preset's width on 512 windows, 3 epochs from one
+    state: ``fit`` with ``scan_epochs=True`` (the card's default, the scan
+    impl) against the per-epoch loop, deterministic cuDNN: the curves, the
+    best accuracy, the test accuracy and the best state's tensors within
+    1e-6, its step counters and generator state equal."""
+    from fall_multimodal_tpu_torch.data import make_synthetic, split_dataset, to_device
+    from fall_multimodal_tpu_torch.train import build_optimizer, create_train_state, fit
+
+    cfg = load_config(preset_path("sensor_cnn_bilstm_urfall"))
+    d = cfg.data
+    data = make_synthetic(n_windows=512, num_classes=d.num_classes, sensor_dim=d.sensor_dim,
+                          seed=0)
+    splits = {k: to_device(v, cuda_device) for k, v in split_dataset(data, seed=0).items()}
+    state0 = create_train_state(cfg, build_optimizer(cfg), seed=0, device=cuda_device)
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        runs = [fit(state0.snapshot(), splits, epochs=3, batch_size=cfg.train.batch_size,
+                    num_classes=d.num_classes, softmax_before_ce=cfg.model.softmax_output,
+                    scan_epochs=se) for se in (False, None)]
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    a, b = runs
+    for k in ("train_loss", "train_acc", "val_loss", "val_acc"):
+        np.testing.assert_allclose(a.history[k], b.history[k], atol=1e-6, err_msg=k)
+    assert abs(a.best_val_accuracy - b.best_val_accuracy) <= 1e-6
+    assert abs(a.test.accuracy - b.test.accuracy) <= 1e-6
+    for (k, x), y in zip(a.best_state.model.state_dict().items(),
+                         b.best_state.model.state_dict().values()):
+        assert float((x.double() - y.double()).abs().max()) <= 1e-6, k
+    assert (a.best_state.step, a.best_state.optimizer.gradient_step) == \
+        (b.best_state.step, b.best_state.optimizer.gradient_step)
+    assert torch.equal(a.best_state.generator.get_state(), b.best_state.generator.get_state())

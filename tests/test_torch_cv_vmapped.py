@@ -279,13 +279,19 @@ def test_fold_mesh_on_cpu_groups_equals_one_group_and_needs_divisible_folds():
 
 
 def test_scan_epochs_and_the_scan_impl_raise():
+    """Fused epochs run with the scan impl; they raise where the JAX package
+    raises: beside gradient-norm streaming, or with the host impl (``auto``
+    on the CPU)."""
     cfg = load_config(preset_path("bilstm"), overrides=OVERRIDES)
     with pytest.raises(ValueError, match="scan_epochs"):
         cross_validate_vmapped(cfg, make_synthetic(**DATA), scan_epochs=True, device="cpu")
     scan = load_config(preset_path("bilstm"), overrides={**OVERRIDES,
                                                           "train.epoch_impl": "scan"})
-    with pytest.raises(ValueError, match="epoch_impl"):
-        cross_validate_vmapped(scan, make_synthetic(**DATA), device="cpu")
+    with pytest.raises(ValueError, match="scan_epochs"):
+        cross_validate_vmapped(scan, make_synthetic(**DATA), scan_epochs=True, grad_norms=True,
+                               device="cpu")
+    res = cross_validate_vmapped(scan, make_synthetic(**DATA), epochs=1, device="cpu")
+    assert len(res["folds"]) == 3
 
 
 def test_no_op_falls_back_to_the_per_example_loop():

@@ -136,12 +136,20 @@ def test_callbacks_and_grad_norms():
     assert all(np.isfinite(v) and v >= 0 for v in per_step[0][1].values())
 
 
-def test_scan_has_no_counterpart_yet():
+def test_scan_has_no_counterpart_yet(tmp_path):
+    """The scan epoch and fused epochs run in the port; what stays refused is
+    what the JAX package refuses: ``scan_epochs=True`` beside a checkpointer,
+    a metrics callback or gradient-norm streaming, and an unknown impl."""
     cfg = _cfg("default_urfall")
-    with pytest.raises(ValueError, match="no counterpart"):
-        make_train_epoch(impl="scan")
-    with pytest.raises(ValueError, match="no counterpart"):
-        _fit(_state(cfg), _splits(cfg, n=48), cfg, epochs=1, scan_epochs=True)
+    splits = _splits(cfg, n=48)
+    with pytest.raises(ValueError, match="scan\\|host\\|auto"):
+        make_train_epoch(impl="unrolled")
+    for kw in (dict(checkpointer=Checkpointer(str(tmp_path / "ckpt"))),
+               dict(metrics_callback=lambda e, s: None), dict(grad_norms=True)):
+        with pytest.raises(ValueError, match="scan_epochs=True"):
+            _fit(_state(cfg), splits, cfg, epochs=1, scan_epochs=True, epoch_impl="scan", **kw)
+    result = _fit(_state(cfg), splits, cfg, epochs=1, scan_epochs=True, epoch_impl="scan")
+    assert len(result.history["train_loss"]) == 1
 
 
 def test_zero_step_epoch_is_caught_by_the_nan_guard():
