@@ -39,7 +39,14 @@ A fold's or a run's checkpoint directory serves through
 ``--grad-norms`` per-step gradient norms, both through
 ``torch.utils.tensorboard`` (the ``tensorboard`` package must be
 installed); ``--profile`` writes a ``torch.profiler`` trace of the run to
-``<output-dir>/profile/trace.json``.
+``<output-dir>/profile/trace.json``, which carries the port's own spans
+(:func:`~fall_multimodal_tpu_torch.utils.profiling.span`): ``fit.epoch``
+with ``fit.shuffle``, ``fit.train``, ``fit.eval``, ``fit.read`` and
+``fit.snapshot`` (``fit.chunk`` per chunk of fused epochs), ``train.step``
+with ``step.gather``, ``step.forward``, ``step.backward`` and
+``step.optimizer``, ``checkpoint.save`` with ``checkpoint.serialize`` and
+``checkpoint.swap``, and ``predict_logits`` with ``predict.prep``,
+``predict.h2d``, ``predict.launch`` and ``predict.d2h``.
 
 ``--mesh N`` trains the single run, ``--cv``, ``--grid`` and ``--test-only``
 data-parallel over N processes, one card each
@@ -107,7 +114,9 @@ def parse_args(argv=None):
                         "(reference main.py:84-89; kept on the device, flushed per epoch)")
     p.add_argument("--profile", action="store_true",
                    help="write a torch.profiler trace of the run to "
-                        "<output-dir>/profile/trace.json")
+                        "<output-dir>/profile/trace.json, with the port's spans "
+                        "(fit.epoch, fit.train, fit.eval, train.step, step.forward, "
+                        "step.backward, step.optimizer, checkpoint.save, ...)")
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (default: the card)")
     p.add_argument("--distributed", action="store_true",

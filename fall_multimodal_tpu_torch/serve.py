@@ -62,6 +62,7 @@ from fall_multimodal_tpu_torch.ops.fused_backbone import FusedBackbone
 from fall_multimodal_tpu_torch.ops.fused_backbone_v2 import fold_backbone, fused_backbone_forward
 from fall_multimodal_tpu_torch.train.loop import k_copies_logits
 from fall_multimodal_tpu_torch.utils.device import full_float32, resolve_device, synchronize
+from fall_multimodal_tpu_torch.utils.profiling import span
 
 
 class Predictor:
@@ -73,7 +74,15 @@ class Predictor:
     take ``sensor=None``. ``num_copies`` > 1 serves the Gen-3 k-copies
     rule: the mean logits of ``num_copies`` contiguous time slices of each
     window (``Multimodal_Fall3/main.py:150-161``).
+
+    ``Predictor.calls`` counts :meth:`predict_logits` calls of every
+    predictor; under a profiler each call is a ``predict_logits`` span with
+    ``predict.prep``, ``predict.h2d``, ``predict.launch`` and
+    ``predict.d2h`` spans per chunk (:func:`~fall_multimodal_tpu_torch.
+    utils.profiling.span`).
     """
+
+    calls = 0
 
     def __init__(self, config: Config, state_dict: Mapping[str, Any],
                  batch_size: int = 128, device="cuda", num_copies: int = 1):
@@ -159,32 +168,40 @@ class Predictor:
     @torch.inference_mode()
     def predict_logits(self, skeleton: np.ndarray,
                        sensor: Optional[np.ndarray] = None) -> np.ndarray:
-        n = len(skeleton)
-        if sensor is None:
-            if self.requires_sensor:
+        Predictor.calls += 1
+        with span("predict_logits"):
+            n = len(skeleton)
+            if sensor is None:
+                if self.requires_sensor:
+                    raise ValueError(
+                        f"model {self.config.model.name!r} consumes the sensor "
+                        "stream; pass sensor=(N, T, S) windows (zero-filling "
+                        "would silently classify on fabricated sensor data)")
+                sensor = np.zeros((n, 1, 1), np.float32)
+            elif len(sensor) != n:
                 raise ValueError(
-                    f"model {self.config.model.name!r} consumes the sensor "
-                    "stream; pass sensor=(N, T, S) windows (zero-filling "
-                    "would silently classify on fabricated sensor data)")
-            sensor = np.zeros((n, 1, 1), np.float32)
-        elif len(sensor) != n:
-            raise ValueError(
-                f"skeleton has {n} windows but sensor has {len(sensor)} — "
-                "the streams pair by index; counts must match")
-        if n == 0:
-            return np.zeros((0, self.config.data.num_classes), np.float32)
-        outs = []
-        for start in range(0, n, self.batch_size):
-            sk = np.asarray(skeleton[start: start + self.batch_size], np.float32)
-            se = np.asarray(sensor[start: start + self.batch_size], np.float32)
-            pad = self.batch_size - len(sk)
-            if pad:
-                sk = np.concatenate([sk, np.repeat(sk[-1:], pad, axis=0)])
-                se = np.concatenate([se, np.repeat(se[-1:], pad, axis=0)])
-            logits = self.forward(torch.from_numpy(sk).to(self.device),
-                                  torch.from_numpy(se).to(self.device))
-            outs.append(logits.cpu().numpy()[: self.batch_size - pad])
-        return np.concatenate(outs)
+                    f"skeleton has {n} windows but sensor has {len(sensor)} — "
+                    "the streams pair by index; counts must match")
+            if n == 0:
+                return np.zeros((0, self.config.data.num_classes), np.float32)
+            outs = []
+            for start in range(0, n, self.batch_size):
+                with span("predict.prep"):
+                    sk = np.asarray(skeleton[start: start + self.batch_size], np.float32)
+                    se = np.asarray(sensor[start: start + self.batch_size], np.float32)
+                    pad = self.batch_size - len(sk)
+                    if pad:
+                        sk = np.concatenate([sk, np.repeat(sk[-1:], pad, axis=0)])
+                        se = np.concatenate([se, np.repeat(se[-1:], pad, axis=0)])
+                    sk, se = torch.from_numpy(sk), torch.from_numpy(se)
+                with span("predict.h2d"):
+                    sk, se = sk.to(self.device), se.to(self.device)
+                with span("predict.launch"):
+                    logits = self.forward(sk, se)
+                with span("predict.d2h"):
+                    logits = logits.cpu()
+                outs.append(logits.numpy()[: self.batch_size - pad])
+            return np.concatenate(outs)
 
     def predict_proba(self, skeleton, sensor=None) -> np.ndarray:
         logits = torch.from_numpy(self.predict_logits(skeleton, sensor))

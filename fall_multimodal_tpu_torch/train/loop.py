@@ -49,7 +49,7 @@ from fall_multimodal_tpu_torch.train.losses import cross_entropy, cross_entropy_
 from fall_multimodal_tpu_torch.train.metrics import prf_from_confusion
 from fall_multimodal_tpu_torch.train.state import TrainState
 from fall_multimodal_tpu_torch.utils.device import full_float32
-from fall_multimodal_tpu_torch.utils.profiling import Throughput
+from fall_multimodal_tpu_torch.utils.profiling import Throughput, span
 
 EMPTY_SPLIT = ("evaluate() got an empty split (0 windows) — the dataset is too "
                "small for the configured split fractions / fold count")
@@ -92,6 +92,11 @@ def make_train_step(
     its rows with the whole batch's BatchNorm statistics, and the gradients
     and metrics are averaged across the ranks: the step of one process at
     the global batch.
+
+    ``make_train_step.steps`` counts the steps taken by every step function
+    it made; under a profiler a step's phases are the spans
+    ``step.forward``, ``step.backward`` and ``step.optimizer``
+    (:func:`~fall_multimodal_tpu_torch.utils.profiling.span`).
     """
 
     def step(state: TrainState, batch: DeviceData):
@@ -103,26 +108,30 @@ def make_train_step(
             feats, sens = augment_fn(state.generator, feats, sens)
         feats, sens, labels = (local_rows(x, mesh) for x in (feats, sens, batch.labels))
         with full_float32() if compute_dtype is None else contextlib.nullcontext():
-            with _precision(compute_dtype, state.device), global_batch_stats(model, mesh):
-                logits = model(feats, sens, generator=state.generator)
-            loss = cross_entropy(logits.float(), labels,
-                                 label_smoothing=label_smoothing,
-                                 softmax_before_ce=softmax_before_ce)
-            state.optimizer.zero_grad()
-            loss.backward()
-            if mesh is not None:
-                grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                         for p in state.optimizer.params]
-                for p, g in zip(state.optimizer.params, grads):
-                    p.grad = g
-                all_reduce_(grads, mesh, average=True)
+            with span("step.forward"):
+                with _precision(compute_dtype, state.device), global_batch_stats(model, mesh):
+                    logits = model(feats, sens, generator=state.generator)
+                loss = cross_entropy(logits.float(), labels,
+                                     label_smoothing=label_smoothing,
+                                     softmax_before_ce=softmax_before_ce)
+            with span("step.backward"):
+                state.optimizer.zero_grad()
+                loss.backward()
+                if mesh is not None:
+                    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                             for p in state.optimizer.params]
+                    for p, g in zip(state.optimizer.params, grads):
+                        p.grad = g
+                    all_reduce_(grads, mesh, average=True)
             metrics: Dict[str, Any] = {}
             if grad_norms:
                 from fall_multimodal_tpu_torch.utils.profiling import grad_norms as _gn
 
                 metrics["grad_norms"] = _gn(model)
-            state.optimizer.step()
+            with span("step.optimizer"):
+                state.optimizer.step()
         state.step += 1
+        make_train_step.steps += 1
         with torch.no_grad():
             acc = (logits.argmax(-1) == labels.argmax(-1)).float().mean()
             loss = loss.detach()
@@ -134,6 +143,9 @@ def make_train_step(
         return state, metrics
 
     return step
+
+
+make_train_step.steps = 0
 
 
 EPOCH_IMPLS = ("auto", "scan", "host")
@@ -167,6 +179,9 @@ def make_train_epoch(label_smoothing=0.0, softmax_before_ce=False, compute_dtype
     :func:`fit` fuses epochs by default.
     ``mesh``: every rank steps through the same global index matrix
     (:func:`make_train_step`).
+
+    Under a profiler each step is a ``train.step`` span holding
+    ``step.gather`` and the step's own phases.
     """
     if impl not in EPOCH_IMPLS:
         raise ValueError(f"epoch impl must be scan|host|auto, got {impl!r}")
@@ -186,11 +201,14 @@ def make_train_epoch(label_smoothing=0.0, softmax_before_ce=False, compute_dtype
         accs = torch.empty(steps, device=dev)
         norms: Dict[str, torch.Tensor] = {}
         for i in range(steps):
-            _, m = train_step(state, gather_batch(data, batch_idx[i]))
-            losses[i] = m["loss"]
-            accs[i] = m["accuracy"]
-            for name, v in m.get("grad_norms", {}).items():
-                norms.setdefault(name, torch.empty(steps, device=dev))[i] = v
+            with span("train.step"):
+                with span("step.gather"):
+                    batch = gather_batch(data, batch_idx[i])
+                _, m = train_step(state, batch)
+                losses[i] = m["loss"]
+                accs[i] = m["accuracy"]
+                for name, v in m.get("grad_norms", {}).items():
+                    norms.setdefault(name, torch.empty(steps, device=dev))[i] = v
         out: Dict[str, Any] = {"loss": losses.mean(), "accuracy": accs.mean()}
         if grad_norms:
             out["grad_norms"] = norms
@@ -432,7 +450,8 @@ def _fit_fused(fused: FusedEpochs, epochs: int, start_epoch: int, scan_epochs,
     times: List[float] = []
     for s in range(0, n_epochs, chunk):
         t0 = time.perf_counter()
-        host = fused.chunk(range(start_epoch + s, start_epoch + s + chunk)).cpu().numpy()
+        with span("fit.chunk"):
+            host = fused.chunk(range(start_epoch + s, start_epoch + s + chunk)).cpu().numpy()
         times += [(time.perf_counter() - t0) / len(host)] * len(host)
         rows.extend(host)
     improved = [i for i, row in enumerate(rows) if row[4]]
@@ -566,7 +585,11 @@ def fit(
     # on resume the caller passes the restored *best* state: seeding it with
     # the restored latest weights would test non-best weights if no epoch
     # after the resume improves (the reference reloads best, main.py:344)
-    best_state = initial_best_state if initial_best_state is not None else state.snapshot()
+    if initial_best_state is not None:
+        best_state = initial_best_state
+    else:
+        with span("fit.snapshot"):
+            best_state = state.snapshot()
     best_acc = initial_best_acc
 
     if scan_epochs:
@@ -578,65 +601,71 @@ def fit(
     else:
         epoch_numbers = range(start_epoch, epochs + 1)
     for epoch_i in epoch_numbers:
-        t0 = time.perf_counter()
-        state.generator.manual_seed(epoch_seed(shuffle_seed, epoch_i))
-        idx = epoch_batch_indices(state.generator, splits["train"].n, batch_size, drop_last)
-        state, tm = train_epoch(state, splits["train"], idx)
-        val = evaluate(eval_epoch, state, splits["valid"], batch_size)
+        with span("fit.epoch"):
+            t0 = time.perf_counter()
+            with span("fit.shuffle"):
+                state.generator.manual_seed(epoch_seed(shuffle_seed, epoch_i))
+                idx = epoch_batch_indices(state.generator, splits["train"].n, batch_size, drop_last)
+            with span("fit.train"):
+                state, tm = train_epoch(state, splits["train"], idx)
+            with span("fit.eval"):
+                val = evaluate(eval_epoch, state, splits["valid"], batch_size)
 
-        per_step_norms = tm.pop("grad_norms", None)
-        scalars = torch.stack([tm["loss"].float(), tm["accuracy"].float()]).cpu().tolist()
-        train_loss, train_acc = scalars
-        dt = time.perf_counter() - t0
-        if per_step_norms is not None and step_metrics_callback is not None:
-            host = {k: v.cpu().numpy() for k, v in per_step_norms.items()}
-            steps_this_epoch = len(next(iter(host.values())))
-            # global step numbers anchored at epoch 1, so a resumed run does
-            # not re-emit the first run's steps
-            base = (epoch_i - 1) * steps_this_epoch
-            for i in range(steps_this_epoch):
-                step_metrics_callback(
-                    base + i, {f"grad_norm/{k}": float(v[i]) for k, v in host.items()})
+            per_step_norms = tm.pop("grad_norms", None)
+            with span("fit.read"):
+                scalars = torch.stack([tm["loss"].float(), tm["accuracy"].float()]).cpu().tolist()
+            train_loss, train_acc = scalars
+            dt = time.perf_counter() - t0
+            if per_step_norms is not None and step_metrics_callback is not None:
+                host = {k: v.cpu().numpy() for k, v in per_step_norms.items()}
+                steps_this_epoch = len(next(iter(host.values())))
+                # global step numbers anchored at epoch 1, so a resumed run does
+                # not re-emit the first run's steps
+                base = (epoch_i - 1) * steps_this_epoch
+                for i in range(steps_this_epoch):
+                    step_metrics_callback(
+                        base + i, {f"grad_norm/{k}": float(v[i]) for k, v in host.items()})
 
-        if nan_guard and not np.isfinite(train_loss):
-            if logger:
-                logger.error(f"non-finite train loss at epoch {epoch_i}; stopping and "
-                             f"keeping the best state (val acc {best_acc:.4f})")
+            if nan_guard and not np.isfinite(train_loss):
+                if logger:
+                    logger.error(f"non-finite train loss at epoch {epoch_i}; stopping and "
+                                 f"keeping the best state (val acc {best_acc:.4f})")
+                history["train_loss"].append(train_loss)
+                break
             history["train_loss"].append(train_loss)
-            break
-        history["train_loss"].append(train_loss)
-        history["train_acc"].append(train_acc)
-        history["val_loss"].append(val.loss)
-        history["val_acc"].append(val.accuracy)
-        history["epoch_time"].append(dt)
+            history["train_acc"].append(train_acc)
+            history["val_loss"].append(val.loss)
+            history["val_acc"].append(val.accuracy)
+            history["epoch_time"].append(dt)
 
-        if val.accuracy > best_acc and np.isfinite(train_loss):
-            best_acc, best_state = val.accuracy, state.snapshot()
+            if val.accuracy > best_acc and np.isfinite(train_loss):
+                with span("fit.snapshot"):
+                    best_acc, best_state = val.accuracy, state.snapshot()
+                if checkpointer is not None:
+                    checkpointer.save_best(state, epoch_i, best_acc)
+
+            if metrics_callback is not None:
+                epoch_scalars = {
+                    "train_loss": train_loss,
+                    "train_accuracy": train_acc,
+                    "val_loss": val.loss,
+                    "val_accuracy": val.accuracy,
+                }
+                if lr_fn is not None:
+                    epoch_scalars["lr"] = float(lr_fn(state.step - 1))
+                metrics_callback(epoch_i, epoch_scalars)
+            rate = ""
+            if throughput is not None:
+                throughput.update(idx.numel())
+                rate = (f" | {throughput.windows_per_sec:.1f} windows/s, "
+                        f"{throughput.windows_per_sec_per_chip:.1f} per card")
+            if logger and (epoch_i % log_every == 0 or epoch_i == epochs):
+                logger.info(
+                    f"epoch {epoch_i}/{epochs} "
+                    f"train loss {train_loss:.4f} acc {train_acc:.4f} | "
+                    f"val loss {val.loss:.4f} acc {val.accuracy:.4f} | {dt:.2f}s{rate}")
             if checkpointer is not None:
-                checkpointer.save_best(state, epoch_i, best_acc)
-
-        if metrics_callback is not None:
-            epoch_scalars = {
-                "train_loss": train_loss,
-                "train_accuracy": train_acc,
-                "val_loss": val.loss,
-                "val_accuracy": val.accuracy,
-            }
-            if lr_fn is not None:
-                epoch_scalars["lr"] = float(lr_fn(state.step - 1))
-            metrics_callback(epoch_i, epoch_scalars)
-        rate = ""
-        if throughput is not None:
-            throughput.update(idx.numel())
-            rate = (f" | {throughput.windows_per_sec:.1f} windows/s, "
-                    f"{throughput.windows_per_sec_per_chip:.1f} per card")
-        if logger and (epoch_i % log_every == 0 or epoch_i == epochs):
-            logger.info(
-                f"epoch {epoch_i}/{epochs} "
-                f"train loss {train_loss:.4f} acc {train_acc:.4f} | "
-                f"val loss {val.loss:.4f} acc {val.accuracy:.4f} | {dt:.2f}s{rate}")
-        if checkpointer is not None:
-            checkpointer.save_latest(state, epoch_i, best_acc)
+                checkpointer.save_latest(state, epoch_i, best_acc)
 
     test = None
     if "test" in splits and splits["test"].n > 0:

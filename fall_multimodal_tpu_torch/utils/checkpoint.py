@@ -29,6 +29,7 @@ from typing import Tuple
 import torch
 
 from fall_multimodal_tpu_torch.train.state import TrainState
+from fall_multimodal_tpu_torch.utils.profiling import span
 
 FILE = "checkpoint.pt"
 
@@ -51,27 +52,32 @@ class Checkpointer:
 
     def _save(self, name: str, state: TrainState, epoch: int, best_acc: float) -> None:
         """Write-then-swap: write to ``<name>.tmp``, move the old checkpoint
-        aside, swap, then drop the old one."""
-        final, tmp, prev = (self._path(name), self._path(f"{name}.tmp"),
-                            self._path(f"{name}.prev"))
-        if os.path.isdir(tmp):
-            shutil.rmtree(tmp)
-        os.makedirs(tmp)
-        torch.save({
-            "model": state.model.state_dict(),
-            "optimizer": state.optimizer.state_dict(),
-            "step": int(state.step),
-            "generator": state.generator.get_state(),
-            "epoch": int(epoch),
-            "best_acc": float(best_acc),
-        }, os.path.join(tmp, FILE))
-        if os.path.isdir(prev):
-            shutil.rmtree(prev)
-        if os.path.isdir(final):
-            os.rename(final, prev)
-        os.rename(tmp, final)
-        if os.path.isdir(prev):
-            shutil.rmtree(prev)
+        aside, swap, then drop the old one. Under a profiler: a
+        ``checkpoint.save`` span holding ``checkpoint.serialize`` (the write)
+        and ``checkpoint.swap``."""
+        with span("checkpoint.save"):
+            final, tmp, prev = (self._path(name), self._path(f"{name}.tmp"),
+                                self._path(f"{name}.prev"))
+            if os.path.isdir(tmp):
+                shutil.rmtree(tmp)
+            os.makedirs(tmp)
+            with span("checkpoint.serialize"):
+                torch.save({
+                    "model": state.model.state_dict(),
+                    "optimizer": state.optimizer.state_dict(),
+                    "step": int(state.step),
+                    "generator": state.generator.get_state(),
+                    "epoch": int(epoch),
+                    "best_acc": float(best_acc),
+                }, os.path.join(tmp, FILE))
+            with span("checkpoint.swap"):
+                if os.path.isdir(prev):
+                    shutil.rmtree(prev)
+                if os.path.isdir(final):
+                    os.rename(final, prev)
+                os.rename(tmp, final)
+                if os.path.isdir(prev):
+                    shutil.rmtree(prev)
 
     def save_best(self, state: TrainState, epoch: int, best_acc: float) -> None:
         self._save("best", state, epoch, best_acc)

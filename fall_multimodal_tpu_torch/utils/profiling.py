@@ -7,7 +7,17 @@ per-parameter gradient-norm TensorBoard scalars (``main.py:84-89``) and
 
 * :func:`trace` — a ``torch.profiler`` trace of a block, written as a
   Chrome/Perfetto trace file;
-* :class:`Throughput` — windows/s counter (in all and per card) with an ETA;
+* :func:`span` — a named range of the port's own work in that trace
+  (``torch.profiler.record_function``) while a profiler runs, and a shared
+  no-op otherwise. The port's ranges: ``predict_logits`` with
+  ``predict.prep`` / ``.h2d`` / ``.launch`` / ``.d2h`` per chunk;
+  ``fit.epoch`` with ``fit.shuffle`` / ``.train`` / ``.eval`` / ``.read`` /
+  ``.snapshot``, or ``fit.chunk`` of fused epochs; ``train.step`` with
+  ``step.gather`` / ``.forward`` / ``.backward`` / ``.optimizer``;
+  ``checkpoint.save`` with ``checkpoint.serialize`` / ``.swap``. Counters
+  for the same boundaries: ``serve.Predictor.calls`` and
+  ``train.loop.make_train_step.steps``;
+* :class:`Throughput` — windows/s counter, in all and per card;
 * :func:`global_norm` / :func:`grad_norms` — gradient telemetry that stays
   on the device (the caller reads it once per epoch), per fold over stacked
   fold states;
@@ -25,11 +35,37 @@ from typing import Dict, Iterable, Iterator, Mapping, Union
 import torch
 
 
+class _NoSpan:
+    """The context :func:`span` hands out while no profiler runs."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> None:
+        return None
+
+    def __exit__(self, *exc) -> None:
+        return None
+
+
+_NO_SPAN = _NoSpan()
+_profiling = torch.autograd._profiler_enabled
+
+
+def span(name: str):
+    """A range named ``name`` in the profiler's trace around a ``with``
+    block of the port's own work, while a ``torch.profiler`` runs
+    (:func:`trace`, or any caller's); the ranges nest as the blocks do and
+    share the clock of the card's activities. With no profiler running it
+    returns one shared no-op context: a flag read, no allocation. It adds no
+    device synchronisation either way."""
+    return torch.profiler.record_function(name) if _profiling() else _NO_SPAN
+
+
 @contextlib.contextmanager
 def trace(log_dir: str) -> Iterator[None]:
-    """Profile the block (host operators, and the card's kernels when there
-    is one) and write ``<log_dir>/trace.json``, viewable in Perfetto or
-    ``chrome://tracing``."""
+    """Profile the block (host operators, the port's :func:`span` ranges, and
+    the card's kernels and copies when there is one) and write
+    ``<log_dir>/trace.json``, viewable in Perfetto or ``chrome://tracing``."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -42,10 +78,10 @@ def trace(log_dir: str) -> Iterator[None]:
 
 
 class Throughput:
-    """Running windows/s counter with ETA (the reference's
-    ``cal_remaining_time`` loop instrumentation); ``n_devices`` cards share
-    the windows (a data-parallel run). Host clock: the caller synchronises
-    the card before :meth:`update` when it times device work."""
+    """Running windows/s counter (the reference's ``cal_remaining_time``
+    loop instrumentation); ``n_devices`` cards share the windows (a
+    data-parallel run). Host clock: the caller synchronises the card before
+    :meth:`update` when it times device work."""
 
     def __init__(self, n_devices: int = 1):
         self.n_devices = n_devices
@@ -54,11 +90,9 @@ class Throughput:
     def reset(self) -> None:
         self._windows = 0
         self._start = time.perf_counter()
-        self._laps = []
 
     def update(self, n_windows: int) -> None:
         self._windows += n_windows
-        self._laps.append(time.perf_counter())
 
     @property
     def windows_per_sec(self) -> float:
@@ -68,12 +102,6 @@ class Throughput:
     @property
     def windows_per_sec_per_chip(self) -> float:
         return self.windows_per_sec / max(self.n_devices, 1)
-
-    def eta_seconds(self, remaining_steps: int) -> float:
-        if len(self._laps) < 2:
-            return float("inf")
-        per_step = (self._laps[-1] - self._start) / len(self._laps)
-        return per_step * remaining_steps
 
 
 def _norm(x: torch.Tensor, fold_axis: bool) -> torch.Tensor:

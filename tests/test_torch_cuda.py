@@ -550,3 +550,52 @@ def test_fused_fit_on_the_card_equals_the_per_epoch_fit(cuda_device):  # noqa: F
     assert (a.best_state.step, a.best_state.optimizer.gradient_step) == \
         (b.best_state.step, b.best_state.optimizer.gradient_step)
     assert torch.equal(a.best_state.generator.get_state(), b.best_state.generator.get_state())
+
+
+@pytest.mark.cuda
+def test_spans_add_no_synchronisation_under_a_profiler(cuda_device):  # noqa: F811
+    """With a ``torch.profiler`` running (CPU and CUDA), so that every span
+    is a ``record_function``, under ``torch.cuda.set_sync_debug_mode
+    ("error")``: one ``predict.launch`` of the flagship at batch 128 (14
+    block-kernel launches and the plain modules) and one fused chunk of two
+    flagship epochs (``fit.chunk``'s steps: ``train.step`` and its phases).
+    No operation inside may wait for the card or read from it, and the
+    spans are in the trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fall_multimodal_tpu_torch.data import make_synthetic, split_dataset, to_device
+    from fall_multimodal_tpu_torch.train import build_optimizer, create_train_state
+    from fall_multimodal_tpu_torch.train.loop import (FusedEpochs, make_eval_epoch,
+                                                      make_train_epoch)
+    from fall_multimodal_tpu_torch.utils.profiling import span
+
+    cfg = load_config(preset_path("gstcan_urfall_3stream"))
+    d = cfg.data
+    pred = Predictor(cfg, build_model(cfg).state_dict(), batch_size=128, device=cuda_device)
+    gen = torch.Generator().manual_seed(0)
+    skel = torch.randn(128, d.seq_len, d.num_joints, d.in_channels, generator=gen).to(cuda_device)
+    sens = torch.randn(128, d.seq_len, d.sensor_dim, generator=gen).to(cuda_device)
+    data = make_synthetic(n_windows=512, num_classes=d.num_classes, sensor_dim=d.sensor_dim,
+                          seed=0)
+    splits = {k: to_device(v, cuda_device) for k, v in split_dataset(data, seed=cfg.seed).items()}
+    state = create_train_state(cfg, build_optimizer(cfg), seed=0, device=cuda_device)
+    fused = FusedEpochs(
+        state, splits, make_train_epoch(cfg.train.label_smoothing, cfg.model.softmax_output,
+                                        impl="scan"),
+        make_eval_epoch(d.num_classes, cfg.train.label_smoothing, cfg.model.softmax_output),
+        cfg.train.batch_size, cfg.train.drop_last, cfg.seed, -1.0)
+    pred.forward(skel, sens)                     # build and load the kernels first
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with span("predict.launch"):
+                logits = pred.forward(skel, sens)
+            curves = fused.chunk([1, 2])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    assert torch.isfinite(logits).all() and torch.isfinite(curves).all()
+    names = {e.key for e in prof.key_averages()}
+    assert {"predict.launch", "train.step", "step.gather", "step.forward", "step.backward",
+            "step.optimizer"} <= names

@@ -247,11 +247,9 @@ def test_model_summary_lists_every_parameter():
 
 def test_throughput_counts_windows():
     tp = profiling.Throughput()
-    assert tp.eta_seconds(5) == float("inf")
     tp.update(64)
     tp.update(64)
     assert tp.windows_per_sec > 0
-    assert tp.eta_seconds(10) > 0
 
 
 def test_nan_debug_raises_at_the_nan_and_restores_the_setting():
