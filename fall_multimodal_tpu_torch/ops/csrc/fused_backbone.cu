@@ -14,9 +14,9 @@
 // adjacency into a dense (V*Cin, V*C) matrix and pads every width to 128
 // lanes; here that would cost V/K = 14/3 times the mix FLOPs of a
 // compute-bound kernel and a 51 MB matrix at C=256. This kernel keeps the
-// factored graph conv at the true widths: one cluster of kCluster CTAs per
-// sample loops over the blocks and runs the same four phases as the per-block
-// kernel. The data BN is applied where block 0 reads x. Activations ping-pong
+// factored graph conv at the true widths: one cluster of CTAs per sample
+// (4, 2 or 1, stgcan_phases.cuh:launch_clusters) loops over the blocks and
+// runs the same four phases as the per-block kernel. The data BN is applied where block 0 reads x. Activations ping-pong
 // between two per-sample scratch buffers in global memory (at most 115 KB per
 // sample at the full plan, so they stay in L2); a cluster barrier after each
 // block makes its rows visible to the CTAs that stage them next and keeps the
@@ -27,13 +27,14 @@
 // T=30, V=14) is about 0.65 GFLOP per sample, 95% of it GEMMs that cost three
 // tensor-core products each in split TF32 (floor at batch 128: about 0.5 ms),
 // against 8.4 MB of weights (17 MB as TF32 halves) shared by all samples. What
-// the design does about it is the per-block design of stgcan_phases.cuh: the
-// cluster cut into row x column parts by the block's width, the weights in a
-// cp.async ring, the graph-conv tile staged once with its halo. What it leaves
-// on the table is what the per-block kernel leaves (no producer warp, the
-// adjacency contraction on the FMA pipe, no TMA multicast), and a cluster
-// never spreads over more than kCluster SMs, so at batch 1 the whole backbone
-// runs on 4 of the 132 SMs.
+// the design does about it is the per-block design of stgcan_phases.cuh: a
+// sample cut into row x column parts by the block's width, a producer
+// warpgroup that keeps the weights' ring and the activations' ring full, two
+// consumer warpgroups with a wgmma group always in flight. What it leaves on
+// the table is what the per-block kernel leaves (every CTA streams every
+// weight from L2 for every sample, no TMA multicast; the SE gate on the FMA
+// pipe between cluster barriers), and a cluster never spreads over more than
+// 4 SMs, so at batch 1 the whole backbone runs on 4 of the 132 SMs.
 
 #include "stgcan_phases.cuh"
 
@@ -57,20 +58,16 @@ struct BackboneArgs {
   BlockConsts blocks[kMaxBlocks];
 };
 
-// Two CTAs per SM (at most 128 registers a thread): at batch 128 the 512 CTAs
-// need the occupancy (one CTA's staging overlaps the other's products); the
-// block's constants are read from parameter space where they are used, since
-// a copy held in registers spills (measured: 9% slower at batch 128).
-__global__ void __launch_bounds__(kThreads, 2)
-fused_backbone_kernel(const __grid_constant__ BackboneArgs p) {
-  extern __shared__ __align__(16) float smem[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
-  const size_t n = blockIdx.x / kCluster;
-
-  // Few values live across a block: every pointer is rebuilt from parameter
-  // space where it is needed (registers are what this kernel is short of).
-  int T = p.T, Cin = p.Cin;
+// The blocks of sample n, by the producer warpgroup (kProducer) or the
+// consumers. Few values live across a block: every pointer is rebuilt from
+// parameter space where it is needed, since a copy held in registers spills.
+// Returns the last block's output; T and Cin become its sizes.
+template <bool kProducer>
+__device__ __forceinline__ const float* run_blocks(const BackboneArgs& p, const size_t n,
+                                                   cg::cluster_group& cluster, float* smem,
+                                                   int& T, int& Cin) {
+  T = p.T;
+  Cin = p.Cin;
   for (int i = 0; i < p.n_blocks; ++i) {
     const BlockConsts& blk = p.blocks[i];  // read where used: no registers held
     const float* xn = i == 0 ? p.x + n * p.T * p.V * p.Cin
@@ -78,11 +75,11 @@ fused_backbone_kernel(const __grid_constant__ BackboneArgs p) {
     float* const on = ((i & 1) ? p.act1 : p.act0) + n * p.act_stride;
     float* const gn = p.g + n * p.g_stride;
     if (i == 0)
-      stgcan_block_phases<true>(blk, T, p.V, Cin, p.K, xn, p.in_s, p.in_t, gn, on, cluster,
-                                rank, smem);
+      stgcan_block_phases<true, kProducer>(blk, T, p.V, Cin, p.K, xn, p.in_s, p.in_t, gn, on,
+                                           cluster, smem);
     else
-      stgcan_block_phases<false>(blk, T, p.V, Cin, p.K, xn, nullptr, nullptr, gn, on,
-                                 cluster, rank, smem);
+      stgcan_block_phases<false, kProducer>(blk, T, p.V, Cin, p.K, xn, nullptr, nullptr, gn, on,
+                                            cluster, smem);
     // Every row of `on` is visible to the cluster before the next block
     // stages it, and no CTA rewrites its shared memory while a peer is still
     // inside this block.
@@ -90,10 +87,27 @@ fused_backbone_kernel(const __grid_constant__ BackboneArgs p) {
     T = (T - 1) / blk.stride + 1;
     Cin = blk.C;
   }
-  const float* xn = ((p.n_blocks & 1) ? p.act0 : p.act1) + n * p.act_stride;
+  return ((p.n_blocks & 1) ? p.act0 : p.act1) + n * p.act_stride;
+}
 
-  // ---- pool over (T, V) and the classifier head, by the first CTA ------------
-  if (rank != 0) return;
+// One CTA per SM: a producer warpgroup and two consumer warpgroups; one
+// cluster a sample.
+__global__ void __launch_bounds__(kCtaThreads, 1)
+fused_backbone_kernel(const __grid_constant__ BackboneArgs p) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const size_t n = blockIdx.x / cluster.num_blocks();
+  int T, Cin;
+  if (threadIdx.x >= kThreads) {
+    producer_registers();
+    run_blocks<true>(p, n, cluster, smem, T, Cin);
+    return;
+  }
+  consumer_registers();
+  const float* xn = run_blocks<false>(p, n, cluster, smem, T, Cin);
+
+  // ---- pool over (T, V) and the classifier head, by the first CTA's consumers
+  if (cluster.block_rank() != 0) return;
   const int rows = T * p.V, C = Cin;
   float* mean = smem;  // the blocks' regions are free after the last barrier
   for (int c = threadIdx.x; c < C; c += kThreads) {
@@ -101,7 +115,7 @@ fused_backbone_kernel(const __grid_constant__ BackboneArgs p) {
     for (int r = 0; r < rows; ++r) s += xn[(size_t)r * C + c];
     mean[c] = s / (float)rows;
   }
-  __syncthreads();
+  consumer_sync();
   for (int j = threadIdx.x; j < p.classes; j += kThreads) {
     float z = p.cls_b[j];
     for (int c = 0; c < C; ++c) z = fmaf(mean[c], p.cls_w[c * p.classes + j], z);
@@ -134,17 +148,23 @@ int fused_backbone_forward(const float* x, const float* in_s, const float* in_t,
   if (n_blocks < 1 || n_blocks > kMaxBlocks) return (int)cudaErrorInvalidValue;
   BackboneArgs p{x, in_s, in_t, cls_w, cls_b, act0, act1, g, logits,
                  n_blocks, T, V, Cin, K, classes, act_stride, g_stride, {}};
-  size_t smem_floats = 0;
-  int tt = T;
-  for (int i = 0; i < n_blocks; ++i) {
-    const int* ints = block_ints + i * kIntsPerBlock;
+  for (int i = 0; i < n_blocks; ++i)
     p.blocks[i] = block_consts(
-        reinterpret_cast<const float* const*>(block_ptrs) + i * kPtrsPerBlock, ints);
-    const size_t need = block_smem_floats(tt, V, K, ints[0], ints[1]);
-    if (need > smem_floats) smem_floats = need;
-    tt = (tt - 1) / ints[1] + 1;
-  }
-  return launch_clusters(fused_backbone_kernel, p, N, sizeof(float) * smem_floats, stream);
+        reinterpret_cast<const float* const*>(block_ptrs) + i * kPtrsPerBlock,
+        block_ints + i * kIntsPerBlock);
+  // every block's shared memory, at the sizes it sees
+  auto smem_bytes = [&](int ncta) {
+    size_t floats = 0;
+    int tt = T;
+    for (int i = 0; i < n_blocks; ++i) {
+      const int* ints = block_ints + i * kIntsPerBlock;
+      const size_t need = block_smem_floats(tt, V, K, ints[0], ints[1], ncta);
+      if (need > floats) floats = need;
+      tt = (tt - 1) / ints[1] + 1;
+    }
+    return sizeof(float) * floats;
+  };
+  return launch_clusters(fused_backbone_kernel, p, N, smem_bytes, stream);
 }
 
 const char* fused_backbone_error_string(int code) {

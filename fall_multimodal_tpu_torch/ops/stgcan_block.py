@@ -412,7 +412,8 @@ def _kernel():
 
 def kernel_smem_bytes(t: int, v: int, k: int, c: int, stride: int) -> int:
     """Dynamic shared memory, in bytes, of one CTA of the block kernel at
-    these sizes (asks the built library; needs ``nvcc``)."""
+    these sizes, at most (with one CTA a sample; asks the built library;
+    needs ``nvcc``)."""
     return int(_kernel().stgcan_block_smem_bytes(t, v, k, c, stride))
 
 

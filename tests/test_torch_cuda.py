@@ -81,6 +81,12 @@ CASES = [
     (1, 100, 200, 1, True, 3),
     (1, 64, 64, 1, True, 30),
     (1, 128, 128, 1, True, 15),
+    # batch 128: more samples than the card holds clusters at once (fewer
+    # CTAs a sample, several parts each), the flagship's widest blocks, and
+    # C=64 at T=30, where the rings wrap many times a pass
+    (128, 128, 256, 2, True, 15),
+    (128, 256, 256, 1, True, 8),
+    (128, 64, 64, 1, True, 30),
 ]
 
 
@@ -146,6 +152,31 @@ def test_kernel_refuses_what_it_does_not_take(cuda_device):  # noqa: F811
         with pytest.raises(ValueError, match=error):
             fused_stgcan_block(x, folded, residual_mode=mode)
         assert fused_stgcan_block.launches == before
+
+
+@pytest.mark.cuda
+def test_kernels_are_deterministic_at_batch_128(cuda_device, no_tf32):  # noqa: F811
+    """The same batch-128 inputs through K1 (one block of each width) and K2,
+    20 times: the outputs are bit-identical. The producer warps hand the
+    rings to the consumers through mbarriers, and every sum is taken in a
+    fixed order; a race between the two would show as run-to-run
+    differences."""
+    A = torch.tensor(build_adjacency("coco_cut", "spatial"), dtype=torch.float32)
+    for cin, cout, stride, t in ((64, 64, 1, 30), (64, 128, 2, 30), (128, 256, 2, 15)):
+        block = _randomize(STGCANBlock(cin, cout, 3, stride=stride, residual=True), cout)
+        folded, mode = fold_block_params(block.to(cuda_device), A.to(cuda_device))
+        x = torch.randn((128, t, 14, cin), generator=torch.Generator().manual_seed(t))
+        x = x.to(cuda_device)
+        first = fused_stgcan_block(x, folded, stride, mode)
+        for _ in range(19):
+            assert torch.equal(fused_stgcan_block(x, folded, stride, mode), first)
+    torch.manual_seed(0)
+    folded = fold_backbone(_scaled(STGCANBackbone(3, num_classes=11), 0).to(cuda_device))
+    x = torch.randn((128, 30, 14, 3), generator=torch.Generator().manual_seed(3))
+    x = x.to(cuda_device)
+    first = fused_backbone_forward(x, folded)
+    for _ in range(19):
+        assert torch.equal(fused_backbone_forward(x, folded), first)
 
 
 # ------------------------------------------- the whole-backbone kernel
