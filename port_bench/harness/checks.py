@@ -47,8 +47,12 @@ def norm_gap(program: Dict[str, float], reference: Dict[str, float],
 
 def value_gap(program: Dict[str, torch.Tensor], reference: Dict[str, torch.Tensor]
               ) -> Tuple[float, str]:
-    """Worst leaf of ``max|p - r| / max(max|r|, median max|r|)``."""
+    """Worst leaf of ``max|p - r| / max(max|r|, median max|r|)``; 0.0 and
+    no leaf's name where there are no leaves (a family without running
+    statistics)."""
     names = list(reference)
+    if not names and not program:
+        return 0.0, ""
     mags = np.asarray([float(reference[n].abs().max()) for n in names])
     scale = np.maximum(mags, np.median(mags))
     gaps = []

@@ -11,6 +11,33 @@ A cell is an entry of ``workloads`` in ``BENCHMARK.json``. Its files:
   ``read(run)`` that returns a number or None;
 * the plain references: ``port_bench/reference/<name>.py``, as the
   configuration names them.
+
+Adding a configuration of any family the system registers takes new files
+alone, and no edit of the harness:
+
+* ``port_bench/configs/<name>.json``: ``port_preset`` (the system's preset
+  it starts from), ``reference`` and ``step_reference`` (module names under
+  ``port_bench/reference/``), and the sections ``model``, ``train`` and
+  ``optim``. ``model`` states ``family`` (the system's model name),
+  ``in_channels``, ``num_classes``, ``sensor_dim``, ``uses_sensor``,
+  ``seq_len`` and ``num_joints``; ``stages`` for an STGCAN family; and
+  ``kwargs``, the family's constructor settings, laid over the preset's
+  (:func:`port_config`);
+* ``port_bench/reference/<reference>.py``: the plain reference, a
+  ``build(model)`` that returns a module under the system's state_dict names
+  with ``forward(skeleton, sensor) -> logits``, and, where they apply:
+  ``raw_leaves(model, scheme)``, yielding ``(tensor, scale, offset)`` for
+  parameters that no module-type rule of ``weights.seed_weights`` draws
+  (one of two or more dimensions that nothing yields is refused there); and
+  ``forward_flops(model)``, one window's FLOPs through the published
+  forward, for a family ``costs.forward_flops`` does not count (the
+  ``mfu`` metrics read it);
+* ``port_bench/traffic/<traffic>.json``, where no traffic file fits;
+* ``port_bench/limits/<cell>.json`` for each new cell;
+* ``port_bench/metrics/<metric>.py`` for each new metric;
+* the entries in ``BENCHMARK.json``: the configuration, its cells, and the
+  cells' names appended to the ``workloads`` of each existing metric they
+  report.
 """
 
 from __future__ import annotations
@@ -65,6 +92,7 @@ class Cell:
     limits: dict                  # {number: {"limit": x, ...}}
     metrics: Dict[str, dict]      # the BENCHMARK.json entries this run reports
     readers: Dict[str, Any]       # metric name -> module with read(run)
+    references: Dict[str, str]    # "reference", "step_reference" -> the module's file
 
 
 def applicable(entry: dict, cell: str, reported: List[str]) -> bool:
@@ -88,12 +116,18 @@ def make_cell(root: str, bench: dict, entry: dict, trace: bool,
               overrides: Optional[dict] = None) -> Cell:
     """A cell from a ``workloads`` entry of ``bench``: its configuration,
     traffic, limits (none if the cell has no file of them) and metric
-    readers."""
+    readers, and the files of the references it names. The configuration's
+    ``model`` section also gets the reference module's file
+    (``reference_file``), so that what is handed only that section
+    (``costs.forward_flops``) finds the module's hooks."""
     workload = entry["name"]
     conf = next(c for c in bench["configs"] if c["name"] == entry["config"])
     overrides = overrides or {}
     here = os.path.join(root, "port_bench")
     config = deep_merge(_read_json(os.path.join(root, conf["file"])), overrides.get("config"))
+    references = {key: os.path.join(here, "reference", f"{config[key]}.py")
+                  for key in ("reference", "step_reference")}
+    config["model"]["reference_file"] = references["reference"]
     traffic = deep_merge(_read_json(os.path.join(here, "traffic", f"{entry['traffic']}.json")),
                          overrides.get("traffic"))
     limits_file = os.path.join(here, "limits", f"{workload}.json")
@@ -104,12 +138,15 @@ def make_cell(root: str, bench: dict, entry: dict, trace: bool,
     readers = {name: load_module(os.path.join(here, "metrics", f"{name}.py"),
                                  f"port_bench_metric_{name.replace('.', '_')}")
                for name in metrics}
-    return Cell(workload, int(entry["chips"]), config, traffic, limits, metrics, readers)
+    return Cell(workload, int(entry["chips"]), config, traffic, limits, metrics, readers,
+                references)
 
 
-def reference(name: str):
-    """The plain reference module ``port_bench/reference/<name>.py``."""
-    return importlib.import_module(f"port_bench.reference.{name}")
+def reference(cell: Cell, key: str = "reference"):
+    """The plain reference module that the cell's configuration names under
+    ``key``, loaded from the cell's own checkout."""
+    path = cell.references[key]
+    return load_module(path, f"port_bench_reference_{os.path.splitext(os.path.basename(path))[0]}")
 
 
 def read_counter(spec: str) -> int:
@@ -176,21 +213,30 @@ def host_note(before: Dict[str, Any], after: Dict[str, Any]) -> str:
 
 def port_config(config: dict):
     """The system's own configuration object for a configuration file: its
-    preset, with every size and setting the file states laid over it."""
+    preset, with every size and setting the file states laid over it. The
+    model is the file's ``family``; its constructor settings are the
+    preset's ``model.kwargs`` with the file's ``model.kwargs`` laid over
+    them, and ``model.stages`` where the file states it."""
     from fall_multimodal_tpu_torch.configs import load_config, preset_path
 
     m, t, o = config["model"], config["train"], config["optim"]
-    overrides = {
+    path = preset_path(config["port_preset"])
+    overrides = {"model.name": m["family"]}
+    if "kwargs" in m:
+        overrides["model.kwargs"] = {**load_config(path).model.kwargs, **m["kwargs"]}
+    if "stages" in m:
+        overrides["model.kwargs.stages"] = m["stages"]
+    overrides.update({
         "data.in_channels": m["in_channels"], "data.num_classes": m["num_classes"],
         "data.sensor_dim": m["sensor_dim"], "data.seq_len": m["seq_len"],
-        "data.num_joints": m["num_joints"], "model.kwargs.stages": m["stages"],
+        "data.num_joints": m["num_joints"],
         "model.softmax_output": t["softmax_output"], "train.batch_size": t["batch_size"],
         "train.epochs": t["epochs"], "train.max_norm": t["max_norm"], "train.dtype": t["dtype"],
         "train.drop_last": t["drop_last"], "optim.type": o["type"], "optim.lr": o["lr"],
         "optim.rms_decay": o["rms_decay"], "optim.eps": o["eps"],
         "optim.momentum": o["momentum"], "optim.weight_decay": o["weight_decay"],
-    }
-    return load_config(preset_path(config["port_preset"]), overrides=overrides)
+    })
+    return load_config(path, overrides=overrides)
 
 
 class Ctx:

@@ -11,6 +11,7 @@ weight read once and each output written once.
 
 from __future__ import annotations
 
+import runpy
 from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 # Published peaks, dense, per card (NVIDIA H100 SXM5 data sheet). TF32 is
@@ -97,24 +98,40 @@ def forward_flops(model: dict, k: int, nnz: int) -> float:
     """FLOPs of one window through the published forward of a configuration's
     ``model`` section: dense GEMMs and convolutions, the adjacency
     contraction over its nonzeros, the LSTM's gate products and the heads
-    (elementwise work, normalisation and pooling are not counted)."""
+    (elementwise work, normalisation and pooling are not counted). The two
+    STGCAN families are counted here; any other family's count is the
+    ``forward_flops(model)`` of the configuration's reference module (the
+    section's ``reference_file``)."""
+    family = model["family"]
+    if family not in ("stgcan", "gstcan_3stream"):
+        return _reference_flops(model)
     t, v, cin, stages = model["seq_len"], model["num_joints"], model["in_channels"], \
         model["stages"]
     classes, c_last = model["num_classes"], stages[-1][0]
-    family = model["family"]
     if family == "stgcan":
         return 2 * (backbone_macs(t, v, cin, stages, k, nnz) + c_last * classes)
-    if family == "gstcan_3stream":
-        s = model["sensor_dim"]
-        t1 = t // 2
-        t2 = t1 // 2
-        sensor = (t * 16 * s * 5 + t1 * 32 * 16 * 5        # two Conv1d(k=5)
-                  + lstm_macs(t2, 32, 64)                  # BiLSTM(64) over T/4 steps
-                  + 2 * 128 * 16 + 128 * classes)          # channel attention, fc
-        head = (2 * c_last + classes) * classes
-        return 2 * (backbone_macs(t, v, cin, stages, k, nnz)
-                    + backbone_macs(t - 1, v, 2, stages, k, nnz) + sensor + head)
-    raise ValueError(f"no FLOP count for model family {family!r}")
+    s = model["sensor_dim"]
+    t1 = t // 2
+    t2 = t1 // 2
+    sensor = (t * 16 * s * 5 + t1 * 32 * 16 * 5        # two Conv1d(k=5)
+              + lstm_macs(t2, 32, 64)                  # BiLSTM(64) over T/4 steps
+              + 2 * 128 * 16 + 128 * classes)          # channel attention, fc
+    head = (2 * c_last + classes) * classes
+    return 2 * (backbone_macs(t, v, cin, stages, k, nnz)
+                + backbone_macs(t - 1, v, 2, stages, k, nnz) + sensor + head)
+
+
+def _reference_flops(model: dict) -> float:
+    """The reference module's ``forward_flops(model)``; raises, naming the
+    function and the file to add it to, where there is none."""
+    path = model.get("reference_file")
+    count = None if path is None else runpy.run_path(path).get("forward_flops")
+    if count is None:
+        where = path or "the configuration's reference module, port_bench/reference/<name>.py"
+        raise ValueError(f"no FLOP count for model family {model['family']!r}: add "
+                         f"forward_flops(model), one window's FLOPs through the published "
+                         f"forward, to {where}")
+    return float(count(model))
 
 
 def adjacency_counts() -> Tuple[int, int]:

@@ -52,10 +52,12 @@ def _peak(device) -> int:
 def trained_weights(ctx: Ctx, pose: np.ndarray, sensor: Optional[np.ndarray]) -> Dict:
     """Seeded 'trained' weights under the reference's names, conditioned on
     one batch, on the host."""
-    ref = core.reference(ctx.config["reference"]).build(ctx.model).to(ctx.device)
+    family = core.reference(ctx.cell)
+    ref = family.build(ctx.model).to(ctx.device)
     with float32():
         sd = seed_weights(ref, ctx.seed, "trained",
-                          condition=(_to(pose, ctx.device), _to(sensor, ctx.device)))
+                          condition=(_to(pose, ctx.device), _to(sensor, ctx.device)),
+                          reference=family)
     return {k: v.cpu() for k, v in sd.items()}
 
 
@@ -63,7 +65,7 @@ def reference_logits(ctx: Ctx, weights: Dict, pose: np.ndarray, sensor: Optional
                      tf32: bool = False, batch: int = 128) -> np.ndarray:
     """The plain reference's logits of ``(N, T, V, C)`` windows, in blocks of
     ``batch``; ``tf32`` computes them in TF32 (the control)."""
-    ref = core.reference(ctx.config["reference"]).build(ctx.model)
+    ref = core.reference(ctx.cell).build(ctx.model)
     ref.load_state_dict(weights)
     ref = ref.to(ctx.device).eval()
     out = []
@@ -204,8 +206,10 @@ class TrainJob:
             ctx.device) for k, idx in self.split.items()}
         ctx.mark("inputs")
         self.steps_per_epoch = max(1, self.splits["train"].n // self.batch)
-        ref = core.reference(ctx.config["reference"]).build(m).to(ctx.device)
-        self.weights = {k: v.cpu() for k, v in seed_weights(ref, ctx.seed, "init").items()}
+        family = core.reference(ctx.cell)
+        ref = family.build(m).to(ctx.device)
+        self.weights = {k: v.cpu() for k, v in seed_weights(
+            ref, ctx.seed, "init", reference=family).items()}
         del ref
         optimizer = build_optimizer(cfg.optim, scheduler=cfg.lr_scheduler,
                                     steps_per_epoch=self.steps_per_epoch,
@@ -330,8 +334,8 @@ class TrainJob:
         each leaf's change after the last. ``tf32``, ``loss_fn`` and
         ``dtype`` make the control, the planted faults and a float64 witness."""
         ctx, m = self.ctx, self.ctx.model
-        family = core.reference(ctx.config["reference"])
-        step_ref = core.reference(ctx.config["step_reference"])
+        family = core.reference(ctx.cell)
+        step_ref = core.reference(ctx.cell, "step_reference")
         model = family.build(m)
         model.load_state_dict(self.weights)
         model = model.to(ctx.device, dtype)
