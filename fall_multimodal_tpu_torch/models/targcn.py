@@ -20,6 +20,13 @@ them and computes the same function.
 The reference's ``adj != None`` quirk (``TRAGCN.py:191``) means it only ever
 ran with an all-ones static adjacency: that is the default, with a real
 adjacency injectable as ``static_adj``.
+
+Under a profiler a forward records ``targcn.recurrence`` around each
+layer's :meth:`GraphGRUCell.scan` (its ``prepare`` included),
+``targcn.transformer`` around the temporal transformer and ``targcn.head``
+around ``end_conv``, the pool and ``fc``; ``GraphGRUCell.steps`` counts the
+frames every scan steps through (:func:`~fall_multimodal_tpu_torch.utils.
+profiling.span`).
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import torch.nn as nn
 
 from fall_multimodal_tpu_torch.graphs import embgcn_static_adjacency
 from fall_multimodal_tpu_torch.models.layers import DenseConv2d, register_constant
+from fall_multimodal_tpu_torch.utils.profiling import span
 
 GCN_VARIANTS = ("gated", "nogate", "linear", "sa")
 
@@ -130,7 +138,10 @@ class GraphGRUCell(nn.Module):
     """Graph GRU cell with graph-conv ``gate`` and ``update`` transforms
     (``GRU.py:8-30``): z, r = sigmoid(gate([x, h])); h_hat = tanh(update([x,
     r*h])); h' = z*h + (1-z)*h_hat. ``gcn_variant``: gated | nogate | linear
-    | sa."""
+    | sa. ``GraphGRUCell.steps`` counts the frames :meth:`scan` steps
+    through, in every cell."""
+
+    steps = 0
 
     def __init__(self, dim_in: int, hidden_dim: int, embed_dim: int, num_nodes: int,
                  static_adj: Optional[np.ndarray] = None, gcn_variant: str = "gated"):
@@ -165,14 +176,16 @@ class GraphGRUCell(nn.Module):
     def scan(self, xs: torch.Tensor, node_emb: torch.Tensor) -> torch.Tensor:
         """The cell over every frame of ``xs`` (B, T, V, C) from h = 0:
         (B, T, V, H)."""
-        prepared = self.prepare(node_emb)
         b, t, v, _ = xs.shape
-        h = xs.new_zeros(b, v, self.hidden_dim)
-        out = []
-        for i in range(t):
-            h = self.step(xs[:, i], h, prepared)
-            out.append(h)
-        return torch.stack(out, dim=1)
+        GraphGRUCell.steps += t
+        with span("targcn.recurrence"):
+            prepared = self.prepare(node_emb)
+            h = xs.new_zeros(b, v, self.hidden_dim)
+            out = []
+            for i in range(t):
+                h = self.step(xs[:, i], h, prepared)
+                out.append(h)
+            return torch.stack(out, dim=1)
 
 
 def sinusoidal_positions(max_len: int, dim: int) -> np.ndarray:
@@ -256,7 +269,8 @@ class GraphGRUEncoder(nn.Module):
     def forward(self, x: torch.Tensor, node_emb: torch.Tensor) -> torch.Tensor:
         for cell in self.dcrnn_cells:
             x = cell.scan(x, node_emb)
-        return self.trans_layer_T(x)
+        with span("targcn.transformer"):
+            return self.trans_layer_T(x)
 
 
 class TARGCN(nn.Module):
@@ -289,8 +303,9 @@ class TARGCN(nn.Module):
             raise ValueError(f"TARGCN takes windows of T={self.seq_len} frames (its temporal "
                              f"attention convolves over T), got T={skeleton.shape[1]}")
         out = self.encoder(skeleton, self.node_embeddings)
-        last = out[:, -self.context_steps:]                  # (B, 6, V, H) as NCHW
-        pred = self.end_conv(last)[..., 0].transpose(1, 2)   # (B, V, horizon*C)
-        b, v, _ = pred.shape
-        pooled = pred.reshape(b, v, self.horizon, self.output_dim).mean(dim=(1, 2))
-        return self.fc(pooled)
+        with span("targcn.head"):
+            last = out[:, -self.context_steps:]                  # (B, 6, V, H) as NCHW
+            pred = self.end_conv(last)[..., 0].transpose(1, 2)   # (B, V, horizon*C)
+            b, v, _ = pred.shape
+            pooled = pred.reshape(b, v, self.horizon, self.output_dim).mean(dim=(1, 2))
+            return self.fc(pooled)

@@ -14,9 +14,12 @@ per-parameter gradient-norm TensorBoard scalars (``main.py:84-89``) and
   ``fit.epoch`` with ``fit.shuffle`` / ``.train`` / ``.eval`` / ``.read`` /
   ``.snapshot``, or ``fit.chunk`` of fused epochs; ``train.step`` with
   ``step.gather`` / ``.forward`` / ``.backward`` / ``.optimizer``;
-  ``checkpoint.save`` with ``checkpoint.serialize`` / ``.swap``. Counters
-  for the same boundaries: ``serve.Predictor.calls`` and
-  ``train.loop.make_train_step.steps``;
+  ``checkpoint.save`` with ``checkpoint.serialize`` / ``.swap``;
+  ``targcn.recurrence`` (one per graph-GRU layer), ``targcn.transformer``
+  and ``targcn.head`` in a TARGCN forward. Counters for the same
+  boundaries: ``serve.Predictor.calls``,
+  ``train.loop.make_train_step.steps`` and
+  ``models.targcn.GraphGRUCell.steps`` (frames stepped through);
 * :class:`Throughput` — windows/s counter, in all and per card;
 * :func:`global_norm` / :func:`grad_norms` — gradient telemetry that stays
   on the device (the caller reads it once per epoch), per fold over stacked

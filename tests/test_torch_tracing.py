@@ -1,9 +1,10 @@
 """The port's spans and counters on the CPU (``utils/profiling.py:span``):
 under a running ``torch.profiler`` a serving call, a per-epoch ``fit`` with
-a checkpointer and a fused ``fit`` put each of their spans into the
-exported chrome trace under its parent; with no profiler running ``span``
-hands out one shared no-op context and nothing is recorded; the counters
-count ``predict_logits`` calls and train steps."""
+a checkpointer, a fused ``fit`` and a TARGCN serving call put each of their
+spans into the exported chrome trace under its parent; with no profiler
+running ``span`` hands out one shared no-op context and nothing is
+recorded; the counters count ``predict_logits`` calls, train steps and the
+frames TARGCN's graph-GRU layers step through."""
 
 import dataclasses
 import json
@@ -17,6 +18,8 @@ from torch.profiler import ProfilerActivity, profile
 from fall_multimodal_tpu_torch.configs import load_config, preset_path
 from fall_multimodal_tpu_torch.data import make_synthetic, split_dataset, to_device
 from fall_multimodal_tpu_torch.data.pipeline import gather_batch
+from fall_multimodal_tpu_torch.models.init import seeded_model
+from fall_multimodal_tpu_torch.models.targcn import GraphGRUCell
 from fall_multimodal_tpu_torch.serve import Predictor
 from fall_multimodal_tpu_torch.train import build_optimizer, create_train_state, fit
 from fall_multimodal_tpu_torch.train.loop import make_train_epoch, make_train_step
@@ -35,6 +38,8 @@ PARENT = {
     "step.forward": "train.step", "step.backward": "train.step", "step.optimizer": "train.step",
     "checkpoint.save": "fit.epoch", "checkpoint.serialize": "checkpoint.save",
     "checkpoint.swap": "checkpoint.save",
+    "targcn.recurrence": "predict.launch", "targcn.transformer": "predict.launch",
+    "targcn.head": "predict.launch",
 }
 
 
@@ -99,6 +104,13 @@ def predictor():
     return Predictor(cfg, state.model.state_dict(), batch_size=4, device="cpu")
 
 
+@pytest.fixture(scope="module")
+def targcn_predictor():
+    cfg = load_config(preset_path("targcn_harup"),
+                      overrides={"model.kwargs.rnn_units": 8, "model.kwargs.embed_dim": 4})
+    return Predictor(cfg, seeded_model(cfg, seed=0).state_dict(), batch_size=4, device="cpu")
+
+
 def test_a_serving_call_puts_its_spans_under_predict_logits(tmp_path, predictor):
     skel, sens = _windows(6)                    # two chunks, the second padded
     out = {}
@@ -110,6 +122,35 @@ def test_a_serving_call_puts_its_spans_under_predict_logits(tmp_path, predictor)
         assert names.count(child) == 2, names
     _assert_nested(spans, parents)
     np.testing.assert_array_equal(out["got"], predictor.predict_logits(skel, sens))
+
+
+def test_a_targcn_forward_puts_its_spans_inside_predict_launch(tmp_path, targcn_predictor):
+    pose = _windows(4)[0]
+    spans, parents = _port_spans(tmp_path, lambda: targcn_predictor.predict_logits(pose))
+    names = [s[0] for s in spans]
+    assert names.count("predict.launch") == 1
+    assert names.count("targcn.recurrence") == 2            # one per graph-GRU layer
+    assert names.count("targcn.transformer") == names.count("targcn.head") == 1
+    _assert_nested(spans, parents)
+    order = [n for n in names if n.startswith("targcn.")]
+    assert order == ["targcn.recurrence", "targcn.recurrence", "targcn.transformer",
+                     "targcn.head"]
+
+
+def test_the_targcn_step_counter_counts_every_layers_frames(targcn_predictor):
+    steps = GraphGRUCell.steps
+    targcn_predictor.predict_logits(_windows(4)[0])
+    assert GraphGRUCell.steps - steps == 60                 # 30 frames x 2 layers
+    targcn_predictor.predict_logits(_windows(9)[0])         # three chunks, three forwards
+    assert GraphGRUCell.steps - steps == 60 * 4
+
+
+def test_targcn_logits_are_the_same_with_and_without_a_profiler(targcn_predictor):
+    poses = _windows(4, seed=3)[0]
+    plain = targcn_predictor.predict_logits(poses)
+    with profile(activities=[ProfilerActivity.CPU]):
+        traced = targcn_predictor.predict_logits(poses)
+    np.testing.assert_array_equal(traced, plain)
 
 
 def test_a_per_epoch_fit_with_a_checkpointer_puts_its_spans_under_their_parents(tmp_path):
@@ -146,10 +187,11 @@ def test_a_fused_fit_nests_the_step_spans_in_its_chunk(tmp_path):
     _assert_nested(spans, parents)
 
 
-def test_a_serving_call_and_both_fits_record_every_span(tmp_path, predictor):
+def test_a_serving_call_and_both_fits_record_every_span(tmp_path, predictor, targcn_predictor):
     cfg = _flagship()
     seen = set()
     for work in (lambda: predictor.predict_logits(*_windows(4)),
+                 lambda: targcn_predictor.predict_logits(_windows(4)[0]),
                  lambda: _fit(cfg, 2, checkpointer=Checkpointer(str(tmp_path / "c"))),
                  lambda: _fit(cfg, 1, epoch_impl="scan", scan_epochs=True)):
         with profile(activities=[ProfilerActivity.CPU]) as prof:
