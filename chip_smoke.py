@@ -6,7 +6,9 @@ Builds the port's CUDA kernels from ``fall_multimodal_tpu_torch/ops/csrc``
 and holds each against its plain PyTorch version at every shape its serving
 path gives it: the STGCAN-block kernel at the flagship's 14 block shapes, the
 whole-backbone kernel at the single-stream ``stgcan`` model's full width (2
-and 11 classes) and on a short stage plan. Serves the reference checkpoint
+and 11 classes) and on a short stage plan, and kernel K3 (TARGCN's temporal
+transformer) at the ``targcn-serve-b8192`` cell's batch of 8,192 windows
+and at batch 1, also against the stock modules. Serves the reference checkpoint
 and a seeded random flagship (``gstcan_urfall_3stream``, full widths, batch
 128) through ``Predictor`` and the HTTP server, then a seeded ``stgcan``
 (``default_urfall``; one whole-backbone launch per forward) and a
@@ -15,7 +17,8 @@ under PyTorch's default TF32 switches before they are set for the plain
 versions: served results are full float32 whatever the switches say. Each
 kernel's time stands beside its bound on the pipe it uses (split TF32 on the
 tensor cores), the older fp32-FMA bound, and the time of ``torch.matmul`` on
-the tap GEMM alone (a yardstick the port never calls). Phase 7 trains: three
+the tap GEMM alone (a yardstick the port never calls); K3's beside its
+plain version, the stock modules, and a batch-1 push through each. Phase 7 trains: three
 float32 steps of the full-width flagship on the card under the default TF32
 switches against the same steps on the CPU; ``run_fold`` on synthetic data
 for the flagship and for ``stgcan``, whose best checkpoints are then served
@@ -25,11 +28,12 @@ train windows/s at batch 32 and 1024 in float32 and bfloat16 (and with the
 dense graph conv off), printed as a ``{"train": [...]}`` line before the
 kernel line. Phase 8 takes the Gen-3 and Gen-1 families (``musa``,
 ``musa_ablation``, ``targcn``, the two skeleton transformers, the
-transformer ensemble), which run as plain modules: the four reference
-fixtures served under PyTorch's default TF32 switches (8a); each family at
-its preset's full width, batch 128, card against CPU, with windows/s and
-push latency (8b); k-copies inference (``num_copies=2``) through the
-kernels at T=15, held against the plain versions (8c); ``run_fold`` of
+transformer ensemble), which run as plain modules (``targcn``'s temporal
+transformer at its preset's width through kernel K3, one launch a forward):
+the four reference fixtures served under PyTorch's default TF32 switches
+(8a); each family at its preset's full width, batch 128, card against CPU,
+with windows/s and push latency (8b); k-copies inference (``num_copies=2``)
+through the kernels at T=15, held against the plain versions (8c); ``run_fold`` of
 ``musa_harup`` and ``targcn_harup`` served from their best checkpoints, and
 train windows/s of three families (8d); printed as a ``{"families": [...]}``
 line. Phase 9 runs the cross-validation path through the trainer's and the
@@ -112,6 +116,12 @@ from fall_multimodal_tpu_torch.ops.stgcan_block import (
     stgcan_block_emulated,
     stgcan_block_reference,
 )
+from fall_multimodal_tpu_torch.models.targcn import TemporalTransformer
+from fall_multimodal_tpu_torch.ops.temporal_transformer import (
+    fused_temporal_transformer,
+    pack_temporal_transformer,
+    temporal_transformer_reference,
+)
 from fall_multimodal_tpu_torch.serve import (
     Predictor,
     StreamingClassifier,
@@ -148,6 +158,7 @@ SEED = 0
 KERNEL_TOL = 1e-4        # split-TF32 kernel vs fp32 plain version, other summation order
 MODEL_TOL = 1e-4
 SHORT_PLAN = ((64, 1, False), (128, 2, True))
+K3_BATCH = 8192       # targcn-serve-b8192's batch: 114,688 sequences over every SM
 # H100 SXM published peaks (NVIDIA data sheet): fp32 outside the tensor
 # cores, dense TF32 in them, HBM3 bandwidth. The kernels' GEMMs run in split
 # TF32, three tensor-core products for one fp32 product; the adjacency
@@ -258,6 +269,130 @@ def block_shapes(pred):
             calls.append((stream, i, t, folded, stride, mode))
             t = (t - 1) // stride + 1
     return calls
+
+
+def transformer_cost(n, t, v, f, layers, packed):
+    """(flops, bytes) of one call of TARGCN's temporal transformer (K3) on
+    n windows: per sequence and layer the two 3-tap convolutions, ``vff``,
+    ``Q K^T``, ``A V`` and both ``ff`` products, the count of
+    ``port_bench/reference/targcn.py:forward_flops`` (softmax, LayerNorm and
+    the adds not counted); x read once, the result written once, the packed
+    weights and positional table read once."""
+    per = (2 * 2 * t * (f - 2) * t * 3      # conv1, conv2
+           + 2 * t * f * f                   # vff
+           + 2 * t * t * (f - 2)             # Q K^T
+           + 2 * t * t * f                   # A V
+           + 2 * 2 * t * f * f)              # ff
+    nbytes = 4 * (2 * n * t * v * f + packed.weights.numel() + packed.pe.numel())
+    return n * v * layers * per, nbytes
+
+
+def k3_checks(dev):
+    """Phase 2c: kernel K3 on the card against its packed plain version and
+    against the stock ``TemporalTransformer`` (which does not read the
+    packing), the whole (B, T, V, F) output within KERNEL_TOL: the seeded
+    ``targcn_harup`` transformer (T 30, V 14, F 64) at batch K3_BATCH, 1 and
+    37, and modules of T 7 and 32 (drawn, then perturbed) at batch 1 and 37;
+    every wrapper call counted as one launch. Then one batch-128 TARGCN
+    ``Predictor`` forward: one K3 launch, its logits against the model's
+    stock forward on the card. Returns what the timings and the kernel line
+    need."""
+    cfg = load_config(preset_path("targcn_harup"))
+    model = seeded_model(cfg, SEED).to(dev).eval()
+    ta = model.encoder.trans_layer_T
+    packed = pack_temporal_transformer(ta)
+    cases = [(n, ta, packed, 30) for n in (K3_BATCH, 1, 37)]
+    for t in (7, 32):
+        torch.manual_seed(t)
+        other = TemporalTransformer(64, 2, t)
+        with torch.no_grad():
+            for prm in other.parameters():
+                prm.add_(0.1 * torch.randn_like(prm))
+        other = other.to(dev).eval()
+        cases += [(n, other, pack_temporal_transformer(other), t) for n in (1, 37)]
+    max_err = 0.0
+    fused_temporal_transformer.launches = 0
+    for n, module, pk, t in cases:
+        x = torch.randn((n, t, 14, 64), generator=torch.Generator().manual_seed(n + t)).to(dev)
+        with torch.no_grad():
+            out = fused_temporal_transformer(x, pk)
+            torch.cuda.synchronize()
+            err = (out - temporal_transformer_reference(x, pk)).abs().max().item()
+            err_stock = (out - module(x)).abs().max().item()
+        ok = bool(torch.isfinite(out).all()) and err <= KERNEL_TOL and err_stock <= KERNEL_TOL
+        log(f"check temporal_transformer T={t} N={n:4d}: max_abs_err={err:.3e} vs the plain "
+            f"version, {err_stock:.3e} vs the stock modules ({'ok' if ok else 'FAIL'})")
+        if not ok:
+            raise AssertionError(f"temporal_transformer disagrees at T={t}, N={n}: {err}, "
+                                 f"{err_stock} against the stock modules")
+        max_err = max(max_err, err, err_stock)
+    if fused_temporal_transformer.launches != len(cases):
+        raise AssertionError(f"{len(cases)} K3 calls counted "
+                             f"{fused_temporal_transformer.launches} launches")
+    pred = Predictor(cfg, {k: v.cpu() for k, v in model.state_dict().items()},
+                     batch_size=BATCH, device=dev)
+    skel = np.random.default_rng(SEED).normal(size=(BATCH, 30, 14, 3)).astype(np.float32)
+    fused_temporal_transformer.launches = 0
+    got = pred.predict_logits(skel)
+    launches = fused_temporal_transformer.launches
+    with torch.no_grad():
+        want = pred.model(torch.from_numpy(skel).to(dev)).cpu().numpy()
+    err = float(np.abs(got - want).max())
+    log(f"targcn Predictor(batch {BATCH}) forward launched temporal_transformer {launches} "
+        f"time(s); logits vs the model's stock forward on the card max_abs_err={err:.3e}")
+    if launches != 1 or not err <= MODEL_TOL:
+        raise AssertionError(f"targcn Predictor: {launches} K3 launches a forward, logits off "
+                             f"the stock forward by {err}")
+    return {"ta": ta, "packed": packed, "pred": pred, "launches": launches,
+            "max_abs_err": max_err}
+
+
+def k3_timings(k3):
+    """Phase 6 for K3: CUDA-event ms at batch K3_BATCH and 1 of the kernel,
+    of its plain version and of the stock modules, beside the bound (FLOPs at
+    the TF32 tensor-core peak, one product a multiply-add, the benchmark's
+    roofline convention, or bytes at HBM3 bandwidth), the same in split TF32
+    (three products) and on the fp32 FMA pipe; then the batch-1 streaming
+    push through K3 and through the stock modules, eight rounds of 25 in
+    turns. Returns the kernel line's entry."""
+    ta, packed = k3["ta"], k3["packed"]
+    row = {}
+    for n in (K3_BATCH, 1):
+        x = torch.randn((n, packed.t, 14, packed.f), device=packed.weights.device)
+        with torch.no_grad():
+            k_ms = cuda_ms(lambda: fused_temporal_transformer(x, packed))
+            p_ms = cuda_ms(lambda: temporal_transformer_reference(x, packed), iters=5)
+            s_ms = cuda_ms(lambda: ta(x), iters=5)
+        flops, nbytes = transformer_cost(n, packed.t, 14, packed.f, packed.n_layers, packed)
+        ops_ms, byte_ms = flops / PEAK_TF32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        b_ms = max(ops_ms, byte_ms)
+        split_ms = max(TF32_PRODUCTS * ops_ms, byte_ms)
+        fma_ms = max(flops / PEAK_FP32_FLOPS * 1e3, byte_ms)
+        log(f"time temporal_transformer N={n}: kernel {k_ms:.4f} ms (1 launch), plain "
+            f"{p_ms:.4f} ms, stock modules {s_ms:.4f} ms; bound {b_ms:.4f} ms "
+            f"({'operations' if ops_ms >= byte_ms else 'bytes'}, {flops / 1e9:.2f} GFLOP at "
+            f"495 TFLOP/s; {nbytes / 1e6:.1f} MB), split TF32 {split_ms:.4f} ms, fp32-FMA "
+            f"bound {fma_ms:.4f} ms; {flops / k_ms / 1e9:.1f} TFLOP/s")
+        if n == K3_BATCH:
+            row.update(batch=n, ms=k_ms, plain_ms=p_ms, stock_ms=s_ms, bound_ms=b_ms,
+                       bound_by="operations" if ops_ms >= byte_ms else "bytes",
+                       split_tf32_bound_ms=split_ms, fma_bound_ms=fma_ms, gflop=flops / 1e9)
+        else:
+            row.update(ms_batch_1=k_ms, plain_ms_batch_1=p_ms, stock_ms_batch_1=s_ms)
+    k3_pred = k3["pred"].with_batch_size(1)
+    stock = copy.copy(k3_pred)
+    stock.packed_ta = None                       # the same model through its own modules
+    p50 = {"k3": [], "stock": []}
+    for _ in range(4):
+        for label, p in (("k3", k3_pred), ("stock", stock), ("stock", stock), ("k3", k3_pred)):
+            lat = measure_push_latency(StreamingClassifier(p, seq_len=packed.t), n_pushes=25,
+                                       warmup=5)
+            p50[label].append(lat["p50_ms"])
+    for label, vals in p50.items():
+        log(f"targcn push (batch 1) through {label}: p50 of 8 rounds of 25 pushes in turns: "
+            f"median {np.median(vals):.3f} ms (" + ", ".join(f"{v:.3f}" for v in vals) + ")")
+    row["push_p50_ms"] = {label: float(np.median(vals)) for label, vals in p50.items()}
+    return row
 
 
 def seeded_state_dict(cfg):
@@ -551,9 +686,10 @@ def serve_fixtures(dev, defaults):
 
 def serve_families(dev, rng):
     """Phase 8b: each family at its preset's full width, seeded weights,
-    batch 128 on the card against the same Predictor on the CPU; no kernel
-    launches (plain modules); device ms per forward, windows/s host to host,
-    push p50/p99 at batch 1."""
+    batch 128 on the card against the same Predictor on the CPU; no K1 or
+    K2 launch (plain modules; ``targcn``'s temporal transformer one K3
+    launch a forward); device ms per forward, windows/s host to host, push
+    p50/p99 at batch 1."""
     rows = []
     for name, preset in FAMILIES:
         cfg = family_config(name, preset)
@@ -565,12 +701,14 @@ def serve_families(dev, rng):
         pred = Predictor(cfg, sd, batch_size=BATCH, device=dev)
         sens = sens if pred.requires_sensor else None
         fused_stgcan_block.launches = fused_backbone_forward.launches = 0
+        fused_temporal_transformer.launches = 0
         logits = pred.predict_logits(skel, sens)
-        launches = (fused_stgcan_block.launches, fused_backbone_forward.launches)
+        launches = (fused_stgcan_block.launches, fused_backbone_forward.launches,
+                    fused_temporal_transformer.launches)
         cpu = Predictor(cfg, sd, batch_size=BATCH, device="cpu").predict_logits(skel, sens)
         err = float(np.abs(logits - cpu).max())
-        if launches != (0, 0) or not err <= MODEL_TOL or not np.isfinite(logits).all() \
-                or np.ptp(cpu, axis=0).min() <= 1e-3:
+        if launches != (0, 0, int(name == "targcn")) or not err <= MODEL_TOL \
+                or not np.isfinite(logits).all() or np.ptp(cpu, axis=0).min() <= 1e-3:
             raise AssertionError(f"{name}: card logits off the CPU's by {err} "
                                  f"(launches {launches})")
         x_d = torch.from_numpy(skel).to(dev)
@@ -1550,6 +1688,9 @@ def main() -> int:
                 raise AssertionError(f"fused_backbone disagrees on {name}, N={n}: {err}")
             bb_err = max(bb_err, err)
 
+    # ---- phase 2c: K3, TARGCN's temporal transformer, at the cell's batch ----
+    k3 = k3_checks(dev)
+
     # ---- phase 3: the reference checkpoint served on the card --------------
     sd_ref = load_state_dict_file(FIXTURE)
     g = np.load(FIXTURE)
@@ -1735,6 +1876,7 @@ def main() -> int:
         f"p50 {lat_s['p50_ms']:.3f} ms, p99 {lat_s['p99_ms']:.3f} ms; host share of a push "
         f"(p50 - batch-1 kernel): {lat_s['p50_ms'] - bb1_ms:.3f} ms, before the constants "
         f"were packed once: {HOST_SHARE_BEFORE_MS:.3f} ms")
+    k3_row = k3_timings(k3)
 
     # ---- phase 7: training at full width, then the trained weights served ----
     train_7a = train_steps_card_vs_cpu(cfg, sd_random, dev, defaults)
@@ -1798,6 +1940,16 @@ def main() -> int:
         "bound_pipe": "3xTF32 tensor cores",
         "fma_bound_ms": bb_fma_ms,
         "gemm_library_ms": {"fp32": bb_lib32, "tf32": bb_libtf},
+        "library_ms": None,
+    }, {
+        "name": "temporal_transformer",
+        "route": "cuda",
+        "source": "fall_multimodal_tpu_torch/ops/csrc/temporal_transformer.cu",
+        "replaces": None,
+        "launches": k3["launches"],
+        "max_abs_err": k3["max_abs_err"],
+        **k3_row,
+        "bound_pipe": "TF32 tensor cores, one product a multiply-add",
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -8,9 +8,12 @@ Counterpart of ``fall_multimodal_tpu/serve.py``:
   (:func:`~fall_multimodal_tpu_torch.ops.fused_backbone_v2.
   fused_backbone_forward`), each stream of the two- and three-stream models
   through a :class:`~fall_multimodal_tpu_torch.ops.fused_backbone.
-  FusedBackbone` (every block through the fused STGCAN-block kernel), the
-  sensor-only models and the Gen-3 / Gen-1 families (``musa``, ``targcn``,
-  the skeleton transformers and their ensemble) as plain modules; pads
+  FusedBackbone` (every block through the fused STGCAN-block kernel),
+  ``targcn``'s temporal transformer as one launch of
+  :func:`~fall_multimodal_tpu_torch.ops.temporal_transformer.
+  fused_temporal_transformer` where that kernel takes its shapes, the
+  sensor-only models and the other Gen-3 / Gen-1 families (``musa``, the
+  skeleton transformers and their ensemble) as plain modules; pads
   ragged requests to ``batch_size`` and chunks larger ones; with
   ``num_copies`` > 1 it averages the logits of k time slices of each window
   (:func:`~fall_multimodal_tpu_torch.train.loop.k_copies_logits`), each
@@ -60,6 +63,11 @@ from fall_multimodal_tpu_torch.models import (
 from fall_multimodal_tpu_torch.models.stgcan import motion_stream
 from fall_multimodal_tpu_torch.ops.fused_backbone import FusedBackbone
 from fall_multimodal_tpu_torch.ops.fused_backbone_v2 import fold_backbone, fused_backbone_forward
+from fall_multimodal_tpu_torch.ops.temporal_transformer import (
+    fused_temporal_transformer,
+    kernel_takes,
+    pack_temporal_transformer,
+)
 from fall_multimodal_tpu_torch.train.loop import k_copies_logits
 from fall_multimodal_tpu_torch.utils.device import full_float32, resolve_device, synchronize
 from fall_multimodal_tpu_torch.utils.profiling import span
@@ -98,13 +106,15 @@ class Predictor:
         if num_copies > 1 and isinstance(self.model, TARGCN):
             raise ValueError(f"num_copies={num_copies}: TARGCN takes only whole windows of "
                              f"T={config.data.seq_len} frames, so it serves num_copies=1")
-        # what the family's forward runs through; folded once, here
-        self.folded = self.pts_fb = self.mot_fb = None
+        # what the family's forward runs through; folded or packed once, here
+        self.folded = self.pts_fb = self.mot_fb = self.packed_ta = None
         if isinstance(self.model, STGCANClassifier):
             self.folded = fold_backbone(self.model)
         elif isinstance(self.model, (TwoStreamSTGCAN, ThreeStreamGSTCAN)):
             self.pts_fb = FusedBackbone(self.model.pts_stream)
             self.mot_fb = FusedBackbone(self.model.mot_stream)
+        elif isinstance(self.model, TARGCN) and kernel_takes(self.model.encoder.trans_layer_T):
+            self.packed_ta = pack_temporal_transformer(self.model.encoder.trans_layer_T)
 
     def with_batch_size(self, batch_size: int) -> "Predictor":
         """A predictor over the same model and folded weights at another
@@ -146,7 +156,9 @@ class Predictor:
         """Logits of one batch already on the device: the single-stream
         classifier as one whole-backbone kernel launch, the two- and
         three-stream models through one kernel launch per block of each
-        stream, the other families as plain modules, each once per time
+        stream, TARGCN's temporal transformer as one kernel launch (its
+        recurrence and head as plain modules) where the kernel takes its
+        shapes, the other families as plain modules, each once per time
         slice under k-copies. The plain modules run in full float32
         (:func:`full_float32`)."""
         if self.num_copies > 1:
@@ -158,6 +170,9 @@ class Predictor:
         if self.folded is not None:
             return fused_backbone_forward(skeleton, self.folded)
         with full_float32():
+            if self.packed_ta is not None:
+                return self.model.forward_with(
+                    skeleton, lambda x: fused_temporal_transformer(x, self.packed_ta))
             if self.pts_fb is None:
                 return self.model(skeleton, sensor)
             feats = [self.pts_fb(skeleton), self.mot_fb(motion_stream(skeleton).contiguous())]

@@ -630,3 +630,85 @@ def test_spans_add_no_synchronisation_under_a_profiler(cuda_device):  # noqa: F8
     names = {e.key for e in prof.key_averages()}
     assert {"predict.launch", "train.step", "step.gather", "step.forward", "step.backward",
             "step.optimizer"} <= names
+
+
+# ------------------------------------------- K3: TARGCN's temporal transformer
+
+def _targcn_transformer(device):
+    from fall_multimodal_tpu_torch.ops.temporal_transformer import pack_temporal_transformer
+
+    cfg = load_config(preset_path("targcn_harup"))
+    model = seeded_model(cfg).to(device).eval()
+    return cfg, model, pack_temporal_transformer(model.encoder.trans_layer_T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,v", [(1, 14), (3, 14), (8192, 14), (3, 5)])
+def test_temporal_transformer_kernel_matches_its_plain_version(cuda_device, no_tf32,  # noqa: F811
+                                                               n, v):
+    """K3 against its packed plain version in full fp32 at the preset's
+    widths (T 30, F 64; seeded weights, inputs N(0, 1)): batch 1 (7 CTAs),
+    3, 8,192 (114,688 sequences over every SM, the last CTAs a pair short)
+    and an odd sequence count (15: one CTA's second slot idle)."""
+    from fall_multimodal_tpu_torch.ops.temporal_transformer import (
+        fused_temporal_transformer,
+        temporal_transformer_reference,
+    )
+
+    _, model, packed = _targcn_transformer(cuda_device)
+    x = torch.randn((n, 30, v, 64), generator=torch.Generator().manual_seed(n)).to(cuda_device)
+    launches = fused_temporal_transformer.launches
+    out = fused_temporal_transformer(x, packed)
+    torch.cuda.synchronize()
+    assert fused_temporal_transformer.launches == launches + 1
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, temporal_transformer_reference(x, packed), rtol=0, atol=TOL)
+    with torch.no_grad():
+        torch.testing.assert_close(out, model.encoder.trans_layer_T(x), rtol=0, atol=TOL)
+
+
+@pytest.mark.cuda
+def test_a_targcn_predictor_runs_its_transformer_in_one_kernel_launch(cuda_device):  # noqa: F811
+    """A TARGCN ``Predictor`` on the card, under PyTorch's default TF32
+    flags: one K3 launch a forward (two for a request of two chunks), and
+    its logits equal the model's stock forward under ``full_float32``."""
+    from fall_multimodal_tpu_torch.ops.temporal_transformer import fused_temporal_transformer
+    from fall_multimodal_tpu_torch.utils.device import full_float32
+
+    cfg, model, _ = _targcn_transformer("cpu")
+    pred = Predictor(cfg, model.state_dict(), batch_size=64, device=cuda_device)
+    assert pred.packed_ta is not None
+    skel = np.random.default_rng(4).normal(size=(100, 30, 14, 3)).astype(np.float32)
+    launches = fused_temporal_transformer.launches
+    got = pred.predict_logits(skel)
+    assert fused_temporal_transformer.launches == launches + 2
+    with torch.no_grad(), full_float32():
+        want = pred.model(torch.from_numpy(skel).to(cuda_device)).cpu().numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
+
+
+@pytest.mark.cuda
+def test_temporal_transformer_kernel_refuses_what_it_does_not_take(cuda_device):  # noqa: F811
+    """A width other than 64 or a T other than the packed one raises in the
+    wrapper before any launch; a launch the kernel refuses (three layers)
+    raises there with the CUDA error, and counts no launch."""
+    from fall_multimodal_tpu_torch.models.targcn import TemporalTransformer
+    from fall_multimodal_tpu_torch.ops.temporal_transformer import (
+        fused_temporal_transformer,
+        pack_temporal_transformer,
+    )
+
+    _, _, packed = _targcn_transformer(cuda_device)
+    narrow = pack_temporal_transformer(TemporalTransformer(32, 2, 30).to(cuda_device))
+    launches = fused_temporal_transformer.launches
+    with pytest.raises(ValueError, match="F=64"):
+        fused_temporal_transformer(torch.zeros((2, 30, 14, 32), device=cuda_device), narrow)
+    with pytest.raises(ValueError, match="takes"):
+        fused_temporal_transformer(torch.zeros((2, 29, 14, 64), device=cuda_device), packed)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_temporal_transformer(
+            torch.zeros((2, 14, 30, 64), device=cuda_device).transpose(1, 2), packed)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fused_temporal_transformer(torch.zeros((2, 30, 14, 64), device=cuda_device),
+                                   packed._replace(n_layers=3))
+    assert fused_temporal_transformer.launches == launches
