@@ -107,6 +107,7 @@ from fall_multimodal_tpu_torch.models.layers import GraphConv
 from fall_multimodal_tpu_torch.ops import build
 from fall_multimodal_tpu_torch.ops.fused_backbone import FusedBackbone
 from fall_multimodal_tpu_torch.ops.fused_backbone_v2 import (
+    WholeBackbone,
     fused_backbone_forward,
     fused_backbone_reference,
 )
@@ -260,13 +261,15 @@ def backbone_cost(n, t, v, cin, folded):
 
 
 def block_shapes(pred):
-    """Every block call of one flagship forward: (stream, index, T, folded,
-    stride, mode), following T through both streams."""
+    """Every block call of one flagship forward: (stream, index, T, packed
+    block, stride, mode), following T through both streams of the served
+    module."""
     d = pred.config.data
     calls = []
-    for stream, fb, t in (("pts", pred.pts_fb, d.seq_len), ("mot", pred.mot_fb, d.seq_len - 1)):
-        for i, (folded, stride, mode) in enumerate(fb.blocks):
-            calls.append((stream, i, t, folded, stride, mode))
+    for stream, fb, t in (("pts", pred.served.pts_stream, d.seq_len),
+                          ("mot", pred.served.mot_stream, d.seq_len - 1)):
+        for i, (packed, (stride, mode)) in enumerate(zip(fb.blocks, fb.folded.stage_plan)):
+            calls.append((stream, i, t, packed, stride, mode))
             t = (t - 1) // stride + 1
     return calls
 
@@ -381,7 +384,7 @@ def k3_timings(k3):
             row.update(ms_batch_1=k_ms, plain_ms_batch_1=p_ms, stock_ms_batch_1=s_ms)
     k3_pred = k3["pred"].with_batch_size(1)
     stock = copy.copy(k3_pred)
-    stock.packed_ta = None                       # the same model through its own modules
+    stock.served = stock.model                   # the same model through its own modules
     p50 = {"k3": [], "stock": []}
     for _ in range(4):
         for label, p in (("k3", k3_pred), ("stock", stock), ("stock", stock), ("k3", k3_pred)):
@@ -768,22 +771,23 @@ def k_copies_through_the_kernels(dev, rng, cfg, sd, cfg_s, sd_s):
         if launches != want or not err <= MODEL_TOL:
             raise AssertionError(f"{label} k-copies: launches {launches}, off by {err}")
         x = torch.from_numpy(skel[:, :15].copy()).to(dev)
-        if pred.folded is not None:
+        if isinstance(pred.served, WholeBackbone):
+            packed = pred.served.packed
             for n in (BATCH, 1):
-                out = fused_backbone_forward(x[:n].contiguous(), pred.folded)
-                kerr = (out - fused_backbone_reference(x[:n], pred.folded)).abs().max().item()
+                out = fused_backbone_forward(x[:n].contiguous(), packed)
+                kerr = (out - fused_backbone_reference(x[:n], packed.folded)).abs().max().item()
                 log(f"check fused_backbone T=15 N={n}: max_abs_err={kerr:.3e}")
                 if not kerr <= KERNEL_TOL:
                     raise AssertionError(f"fused_backbone at T=15 off by {kerr}")
                 k2_err = max(k2_err, kerr)
         else:
-            for fb, t in ((pred.pts_fb, 15), (pred.mot_fb, 14)):
-                for folded, stride, mode in fb.blocks:
-                    cin = folded.gcn_w.shape[0]
+            for fb, t in ((pred.served.pts_stream, 15), (pred.served.mot_stream, 14)):
+                for packed, (stride, mode) in zip(fb.blocks, fb.folded.stage_plan):
+                    cin = packed.cin
                     xb = torch.from_numpy(rng.normal(size=(BATCH, t, 14, cin)).astype(
                         np.float32)).to(dev)
-                    out = fused_stgcan_block(xb, folded, stride, mode)
-                    kerr = (out - stgcan_block_reference(xb, folded, stride, mode)
+                    out = fused_stgcan_block(xb, packed, stride)
+                    kerr = (out - stgcan_block_reference(xb, packed.folded, stride, mode)
                             ).abs().max().item()
                     log(f"check stgcan_block Cin={cin} T={t} stride={stride} {mode:8s} "
                         f"N={BATCH}: max_abs_err={kerr:.3e}")
@@ -1625,19 +1629,19 @@ def main() -> int:
 
     # ---- phase 2: the kernel against its plain version, every shape --------
     distinct = {}
-    for stream, i, t, folded, stride, mode in calls:
-        cin = folded.gcn_w.shape[0]
-        key = (cin, folded.bn1_scale.shape[0], t, stride, mode)
-        distinct.setdefault(key, []).append((stream, i, folded))
+    for stream, i, t, packed, stride, mode in calls:
+        key = (packed.cin, packed.c, t, stride, mode)
+        distinct.setdefault(key, []).append((stream, i, packed))
     max_err = 0.0
     per_shape = {}
     emulated = set()
     for key, users in distinct.items():
         cin, c, t, stride, mode = key
-        folded = users[0][2]
+        packed = users[0][2]
+        folded = packed.folded
         for n in (BATCH, 1, 37):
             x = torch.from_numpy(rng.normal(size=(n, t, 14, cin)).astype(np.float32)).to(dev)
-            out = fused_stgcan_block(x, folded, stride=stride, residual_mode=mode)
+            out = fused_stgcan_block(x, packed, stride=stride)
             torch.cuda.synchronize()
             ref = stgcan_block_reference(x, folded, stride, mode)
             err = (out - ref).abs().max().item()
@@ -1665,17 +1669,18 @@ def main() -> int:
     cfg_h = load_config(preset_path("default"))
     cfg_short = cfg_s.replace(model=dataclasses.replace(
         cfg_s.model, kwargs={"stages": SHORT_PLAN}))
-    backbones = {"default_urfall": pred_s.folded}
+    backbones = {"default_urfall": pred_s.served.packed}
     for name, c in (("default", cfg_h), ("short_plan", cfg_short)):
         backbones[name] = Predictor(c, seeded_state_dict(c), batch_size=BATCH,
-                                    device=dev).folded
+                                    device=dev).served.packed
     ds = cfg_s.data
     bb_err = 0.0
-    for name, folded in backbones.items():
+    for name, packed in backbones.items():
+        folded = packed.folded
         for n in (BATCH, 1, 37):
             x = torch.from_numpy(rng.normal(
                 size=(n, ds.seq_len, ds.num_joints, ds.in_channels)).astype(np.float32)).to(dev)
-            out = fused_backbone_forward(x, folded)
+            out = fused_backbone_forward(x, packed)
             torch.cuda.synchronize()
             ref = fused_backbone_reference(x, folded)
             err = (out - ref).abs().max().item()
@@ -1788,13 +1793,14 @@ def main() -> int:
     kernel_ms = plain_ms = bound_ms = fma_bound_ms = lib_fp32_ms = lib_tf32_ms = 0.0
     k1_by = set()
     uses = {}
-    for stream, i, t, folded, stride, mode in calls:
-        key = (folded.gcn_w.shape[0], folded.bn1_scale.shape[0], t, stride, mode)
+    for stream, i, t, packed, stride, mode in calls:
+        key = (packed.cin, packed.c, t, stride, mode)
         uses[key] = uses.get(key, 0) + 1
     for key, x in per_shape.items():
         cin, c, t, stride, mode = key
-        folded = distinct[key][0][2]
-        k_ms = cuda_ms(lambda: fused_stgcan_block(x, folded, stride, mode))
+        packed = distinct[key][0][2]
+        folded = packed.folded
+        k_ms = cuda_ms(lambda: fused_stgcan_block(x, packed, stride))
         p_ms = cuda_ms(lambda: stgcan_block_reference(x, folded, stride, mode))
         gemm, other, nbytes = block_cost(BATCH, t, 14, cin, folded, stride, mode)
         b_ms, by, fma_ms = bounds_ms(gemm, other, nbytes)
@@ -1837,9 +1843,10 @@ def main() -> int:
 
     # the whole-backbone kernel and the stgcan path
     x_s = torch.from_numpy(skel).to(dev)
-    folded_s = pred_s.folded
+    packed_s = pred_s.served.packed
+    folded_s = packed_s.folded
     blockwise = FusedBackbone(pred_s.model)      # the same backbone, one launch per block
-    bb_ms = cuda_ms(lambda: fused_backbone_forward(x_s, folded_s))
+    bb_ms = cuda_ms(lambda: fused_backbone_forward(x_s, packed_s))
     bb_plain_ms = cuda_ms(lambda: fused_backbone_reference(x_s, folded_s))
     k1x7_ms = cuda_ms(lambda: blockwise(x_s))
     bb_gemm, bb_other, bb_bytes = backbone_cost(BATCH, ds.seq_len, ds.num_joints,
@@ -1859,7 +1866,7 @@ def main() -> int:
         f"{bb_bytes / 1e6:.2f} MB), {bb_flops / bb_ms / 1e9:.1f} TFLOP/s; gemm_library_ms "
         f"(torch.matmul, the 7 tap GEMMs only) fp32 {bb_lib32:.4f}, TF32 {bb_libtf:.4f}")
     x_1 = x_s[:1].contiguous()
-    bb1_ms = cuda_ms(lambda: fused_backbone_forward(x_1, folded_s))
+    bb1_ms = cuda_ms(lambda: fused_backbone_forward(x_1, packed_s))
     log(f"time fused_backbone default_urfall N=1: kernel {bb1_ms:.4f} ms, 7 stgcan_block "
         f"launches {cuda_ms(lambda: blockwise(x_1)):.4f} ms")
     for _ in range(3):

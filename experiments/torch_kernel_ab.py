@@ -3,18 +3,19 @@
     python3 experiments/torch_kernel_ab.py ROOT [ROOT ...]
 
 Each ROOT is a checkout (or an unpacked ``git archive``) holding
-``chip_smoke.py`` and ``fall_multimodal_tpu_torch/``; name a root several
-times to alternate (parent, change, change, parent). Every root is timed in
+``chip_smoke.py`` and ``fall_multimodal_tpu_torch/`` whose kernel wrappers
+take packs (``pack_block``, ``pack_backbone``); name a root several times to
+alternate (parent, change, change, parent). Every root is timed in
 a process of its own, on the same card, with the seeded weights and inputs
 of its ``chip_smoke.py``:
 
 * the STGCAN-block kernel at the flagship's 14 block shapes, batch 128 and
   batch 1 (the sum is the kernel's time per flagship forward);
-* where the tree has it, the whole-backbone kernel on ``default_urfall`` at
-  batch 128 and batch 1, beside the same backbone in seven block launches;
+* the whole-backbone kernel on ``default_urfall`` at batch 128 and batch 1,
+  beside the same backbone in seven block launches;
 * the batch-1 streaming push (``StreamingClassifier.push``, host clock with
-  the card synchronised, as ``chip_smoke.py`` takes it) of the flagship and,
-  where the tree has it, of ``default_urfall``: p50 over 50 pushes.
+  the card synchronised, as ``chip_smoke.py`` takes it) of the flagship and
+  of ``default_urfall``: p50 over 50 pushes.
 
 Prints one line per root: registers and spills of a fresh build, then CUDA
 event times in ms. Needs an NVIDIA GPU and ``nvcc``; imports no JAX.
@@ -48,12 +49,11 @@ def time_tree(root: str) -> None:
     cfg = cs.load_config(cs.preset_path("gstcan_urfall_3stream"))
     pred = cs.Predictor(cfg, cs.seeded_state_dict(cfg), batch_size=128, device=dev)
     k1 = {128: 0.0, 1: 0.0}
-    for _, _, t, folded, stride, mode in cs.block_shapes(pred):
-        x = torch.from_numpy(rng.normal(
-            size=(128, t, 14, folded.gcn_w.shape[0])).astype(np.float32)).to(dev)
+    for _, _, t, packed, stride, _ in cs.block_shapes(pred):
+        x = torch.from_numpy(rng.normal(size=(128, t, 14, packed.cin)).astype(np.float32)).to(dev)
         for n in k1:
             xn = x[:n].contiguous()
-            k1[n] += cs.cuda_ms(lambda: fused_stgcan_block(xn, folded, stride, mode),
+            k1[n] += cs.cuda_ms(lambda: fused_stgcan_block(xn, packed, stride),
                                 iters=30, warmup=5)
     line = (f"{root}: [{info}] block kernel {k1[128]:.4f} ms per flagship forward "
             f"(batch 1: {k1[1]:.4f} ms)")
@@ -65,17 +65,19 @@ def time_tree(root: str) -> None:
 
     line += f"; flagship push p50 {push_p50(pred, cfg.data, cfg.data.sensor_dim):.3f} ms"
 
-    try:
-        from fall_multimodal_tpu_torch.ops.fused_backbone_v2 import fused_backbone_forward
-    except ImportError:
-        print(line, flush=True)
-        return
+    from fall_multimodal_tpu_torch.ops.fused_backbone_v2 import (
+        fold_backbone,
+        fused_backbone_forward,
+        pack_backbone,
+    )
+
     cfg = cs.load_config(cs.preset_path("default_urfall"))
     pred = cs.Predictor(cfg, cs.seeded_state_dict(cfg), batch_size=128, device=dev)
+    whole_pack = pack_backbone(fold_backbone(pred.model), dev)
     blockwise = FusedBackbone(pred.model)
     x = torch.from_numpy(rng.normal(size=(128, 30, 14, 3)).astype(np.float32)).to(dev)
     for name, xs in (("N=128", x), ("N=1", x[:1].contiguous())):
-        whole = cs.cuda_ms(lambda: fused_backbone_forward(xs, pred.folded), iters=30, warmup=5)
+        whole = cs.cuda_ms(lambda: fused_backbone_forward(xs, whole_pack), iters=30, warmup=5)
         seven = cs.cuda_ms(lambda: blockwise(xs), iters=30, warmup=5)
         line += f"; backbone {name}: one launch {whole:.4f} ms, seven launches {seven:.4f} ms"
     line += f"; stgcan push p50 {push_p50(pred, cfg.data, None):.3f} ms"

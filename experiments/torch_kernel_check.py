@@ -26,10 +26,12 @@ from fall_multimodal_tpu_torch.ops.fused_backbone_v2 import (  # noqa: E402
     fold_backbone,
     fused_backbone_forward,
     fused_backbone_reference,
+    pack_backbone,
 )
 from fall_multimodal_tpu_torch.ops.stgcan_block import (  # noqa: E402
     fold_block_params,
     fused_stgcan_block,
+    pack_block,
     stgcan_block_emulated,
     stgcan_block_reference,
 )
@@ -95,7 +97,8 @@ def main(argv) -> int:
         block = he_scaled(STGCANBlock(cin, c, 3, stride=stride, residual=residual), cin).to(dev)
         folded, mode = fold_block_params(block, A)
         x = torch.randn((n, t, v, cin), generator=torch.Generator().manual_seed(t)).to(dev)
-        out = fused_stgcan_block(x, folded, stride, mode)
+        packed = pack_block(folded, mode, dev)
+        out = fused_stgcan_block(x, packed, stride)
         torch.cuda.synchronize()
         err = (out - stgcan_block_reference(x, folded, stride, mode)).abs().max().item()
         emu = (out - stgcan_block_emulated(x, folded, stride, mode)).abs().max().item()
@@ -103,16 +106,17 @@ def main(argv) -> int:
                 f"{err:.3e}, vs split-TF32 emulation {emu:.3e}")
         if timed:
             xb = torch.randn((128, t, v, cin), device=dev)
-            line += f", batch 128: {cuda_ms(lambda: fused_stgcan_block(xb, folded, stride, mode)):.4f} ms"
+            line += f", batch 128: {cuda_ms(lambda: fused_stgcan_block(xb, packed, stride)):.4f} ms"
         print(line + ("" if err <= TOL else "  FAIL"), flush=True)
         bad += not err <= TOL
     for name, kw, cin in (("full", {}, 3),
                           ("narrow", {"stages": ((16, 1, True), (36, 1, True), (32, 2, True))}, 8)):
         torch.manual_seed(1)
         folded = fold_backbone(he_scaled(STGCANBackbone(cin, num_classes=3, **kw), 2).to(dev))
+        packed = pack_backbone(folded, dev)
         for n in (1, 5):
             x = torch.randn((n, 30, 14, cin), generator=torch.Generator().manual_seed(n)).to(dev)
-            out = fused_backbone_forward(x, folded)
+            out = fused_backbone_forward(x, packed)
             torch.cuda.synchronize()
             err = (out - fused_backbone_reference(x, folded)).abs().max().item()
             print(f"backbone {name} N={n}: vs plain {err:.3e}" + ("" if err <= TOL else "  FAIL"),
@@ -122,7 +126,7 @@ def main(argv) -> int:
             for n in (128, 1):
                 xb = torch.randn((n, 30, 14, cin), device=dev)
                 print(f"backbone full N={n}: "
-                      f"{cuda_ms(lambda: fused_backbone_forward(xb, folded)):.4f} ms")
+                      f"{cuda_ms(lambda: fused_backbone_forward(xb, packed)):.4f} ms")
     return 1 if bad else 0
 
 

@@ -32,7 +32,7 @@ profiling.span`).
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional
+from typing import Optional
 
 import numpy as np
 import torch
@@ -254,7 +254,7 @@ class TemporalTransformer(nn.Module):
 
 class GraphGRUEncoder(nn.Module):
     """Stacked graph-GRU layers over time (:meth:`recurrence`) and the
-    temporal transformer that :meth:`TARGCN.forward_with` runs after them
+    temporal transformer that :meth:`TARGCN.forward` runs after them
     (``TRAGCN.py:134-169``)."""
 
     def __init__(self, in_channels: int, hidden_dim: int, embed_dim: int, num_nodes: int,
@@ -300,20 +300,12 @@ class TARGCN(nn.Module):
 
     def forward(self, skeleton: torch.Tensor, sensor: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        return self.forward_with(skeleton, self.encoder.trans_layer_T)
-
-    def forward_with(self, skeleton: torch.Tensor,
-                     transformer: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
-        """The forward with ``transformer`` ((B, T, V, H) -> (B, T, V, H)) in
-        place of the temporal transformer module, inside the same
-        ``targcn.transformer`` span: ``serve.Predictor`` runs the fused
-        kernel there."""
         if skeleton.shape[1] != self.seq_len:
             raise ValueError(f"TARGCN takes windows of T={self.seq_len} frames (its temporal "
                              f"attention convolves over T), got T={skeleton.shape[1]}")
         out = self.encoder.recurrence(skeleton, self.node_embeddings)
         with span("targcn.transformer"):
-            out = transformer(out)
+            out = self.encoder.trans_layer_T(out)
         with span("targcn.head"):
             last = out[:, -self.context_steps:]                  # (B, 6, V, H) as NCHW
             pred = self.end_conv(last)[..., 0].transpose(1, 2)   # (B, V, horizon*C)

@@ -1,50 +1,48 @@
-"""Folded inference executor for a trained STGCAN backbone.
+"""Folded inference module for a trained STGCAN backbone, a K1 launch a block.
 
 Counterpart of ``fall_multimodal_tpu/ops/pallas/fused_backbone.py``: folds
-the data BN and every block of a port ``models.stgcan.STGCANBackbone`` once,
-then runs data-BN affine -> each block through :func:`fused_stgcan_block`
--> mean over (T, V) -> optional ``cls`` head. Every block goes through the
-block wrapper whatever its width, and there is no fallback: a tensor on the
-card runs the CUDA kernel or raises. For a backbone on the card the
-kernel's side of every block's constants is checked and packed here, once.
+the data BN and every block of a port ``models.stgcan.STGCANBackbone`` once
+(:func:`~fall_multimodal_tpu_torch.ops.fused_backbone_v2.fold_backbone`),
+packs every block once (:func:`pack_block`), then runs data-BN affine -> each
+block through :func:`fused_stgcan_block` -> mean over (T, V) -> optional
+``cls`` head. Every block goes through the block wrapper whatever its width,
+and there is no fallback: a tensor on the card runs the CUDA kernel or
+raises.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+import torch.nn as nn
 
-from fall_multimodal_tpu_torch.ops.stgcan_block import (
-    fold_block_params,
-    fold_bn_module,
-    fused_stgcan_block,
-    packed_block,
-)
+from fall_multimodal_tpu_torch.ops.fused_backbone_v2 import fold_backbone
+from fall_multimodal_tpu_torch.ops.stgcan_block import fused_stgcan_block, pack_block
 
 
-class FusedBackbone:
-    """Inference-only executor; ``backbone`` must be in eval mode semantics
-    (its running statistics are what gets folded)."""
+class FusedBackbone(nn.Module):
+    """Inference-only module; ``backbone``'s running statistics are what gets
+    folded. The fold and the packs are plain attributes, so ``.to()`` moves
+    nothing a pointer table reads."""
 
-    @torch.no_grad()
     def __init__(self, backbone):
-        self.data_bn = fold_bn_module(backbone.data_bn)
-        self.blocks = []
-        for i, block in enumerate(backbone.st_gcn_networks):
-            folded, mode = fold_block_params(block, backbone.A * backbone.edge_importance[i])
-            if folded.A.device.type == "cuda":
-                packed_block(folded, mode, folded.A.device)
-            self.blocks.append((folded, block.stride, mode))
-        cls = backbone.cls
-        self.cls = None if cls is None else (cls.weight[:, :, 0, 0].t().contiguous(),
-                                             cls.bias)
+        super().__init__()
+        self.folded = fold_backbone(backbone)
+        device = self.folded.data_bn_scale.device
+        self.blocks = tuple(pack_block(block, mode, device, name=f"blocks[{i}]")
+                            for i, (block, (_, mode)) in enumerate(
+                                zip(self.folded.blocks, self.folded.stage_plan)))
 
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        folded = self.folded
         n, t, v, c = x.shape
-        s, b = self.data_bn
-        y = (x.reshape(n, t, v * c) * s + b).reshape(n, t, v, c)
-        for folded, stride, mode in self.blocks:
-            y = fused_stgcan_block(y, folded, stride=stride, residual_mode=mode)
+        y = (x.contiguous().reshape(n, t, v * c) * folded.data_bn_scale
+             + folded.data_bn_shift).reshape(n, t, v, c)
+        for packed, (stride, _) in zip(self.blocks, folded.stage_plan):
+            y = fused_stgcan_block(y, packed, stride)
         y = y.mean(dim=(1, 2))
-        if self.cls is not None:
-            y = y @ self.cls[0] + self.cls[1]
+        if folded.cls_w is not None:
+            y = y @ folded.cls_w + folded.cls_b
         return y

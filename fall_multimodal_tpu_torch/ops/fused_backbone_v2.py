@@ -12,23 +12,25 @@ folded constants here are the per-block ones of
 :func:`fused_backbone_reference` for a tensor on the CPU and the CUDA kernel
 for a tensor on the card; it has no other path. The kernel multiplies in
 split TF32 (``ops/stgcan_block.py``); what it reads is built and checked once
-per :class:`FoldedBackbone` by :func:`pack_backbone`, and a call checks ``x``
-only. :func:`fused_backbone_emulated` repeats the kernel's arithmetic in
-plain PyTorch, for tests.
+per :class:`FoldedBackbone` by :func:`pack_backbone`, a call takes that
+:class:`PackedBackbone` and checks ``x`` only, and :class:`WholeBackbone` is
+the module that serves a headed backbone this way.
+:func:`fused_backbone_emulated` repeats the kernel's arithmetic in plain
+PyTorch, for tests.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn as nn
 
 from fall_multimodal_tpu_torch.ops import build
 from fall_multimodal_tpu_torch.ops.stgcan_block import (
     RESIDUAL_MODES,
     FoldedBlockParams,
-    PackCache,
     PackedBlock,
     check_constant,
     fold_block_params,
@@ -50,33 +52,27 @@ class FoldedBackbone(NamedTuple):
     data_bn_shift: torch.Tensor              # (V*Cin,)
     blocks: Tuple[FoldedBlockParams, ...]
     stage_plan: Tuple[Tuple[int, str], ...]  # (stride, residual mode) per block
-    cls_w: torch.Tensor                      # (C_last, classes)
-    cls_b: torch.Tensor                      # (classes,)
+    cls_w: Optional[torch.Tensor]            # (C_last, classes); None without a head
+    cls_b: Optional[torch.Tensor]            # (classes,)
 
 
 @torch.no_grad()
 def fold_backbone(backbone) -> FoldedBackbone:
     """Fold a port ``models.stgcan.STGCANBackbone`` (its running statistics
-    are what gets folded) into kernel constants. The backbone must carry a
-    ``cls`` head."""
-    if backbone.cls is None:
-        raise ValueError(
-            "fold_backbone needs a backbone with a cls head (num_classes set); "
-            "a headless stream runs through ops.fused_backbone.FusedBackbone")
+    are what gets folded) into kernel constants; ``cls_w`` and ``cls_b`` are
+    None for a backbone without a ``cls`` head."""
     scale, shift = fold_bn_module(backbone.data_bn)
     blocks, plan = [], []
     for i, block in enumerate(backbone.st_gcn_networks):
         folded, mode = fold_block_params(block, backbone.A * backbone.edge_importance[i])
         blocks.append(folded)
         plan.append((block.stride, mode))
-    folded = FoldedBackbone(
+    cls = backbone.cls
+    return FoldedBackbone(
         data_bn_scale=scale.contiguous(), data_bn_shift=shift.contiguous(),
         blocks=tuple(blocks), stage_plan=tuple(plan),
-        cls_w=backbone.cls.weight[:, :, 0, 0].t().contiguous(),
-        cls_b=backbone.cls.bias.contiguous())
-    if scale.device.type == "cuda":
-        packed_backbone(folded, scale.device)    # checked and packed once, here
-    return folded
+        cls_w=None if cls is None else cls.weight[:, :, 0, 0].t().contiguous(),
+        cls_b=None if cls is None else cls.bias.contiguous())
 
 
 def fused_backbone_reference(x: torch.Tensor, folded: FoldedBackbone) -> torch.Tensor:
@@ -147,12 +143,17 @@ class PackedBackbone(NamedTuple):
 def pack_backbone(folded: FoldedBackbone, device) -> PackedBackbone:
     """Check the plan and every constant of ``folded`` against what the
     kernel reads on ``device`` and build the kernel's side of them. Raises
-    ``ValueError`` for what the kernel does not take."""
+    ``ValueError`` for what the kernel does not take; the kernel's size
+    limits hold only for a card ``device``."""
+    if folded.cls_w is None:
+        raise ValueError(
+            "pack_backbone needs a backbone with a cls head (num_classes set); "
+            "a headless stream runs through ops.fused_backbone.FusedBackbone")
     check_plan(folded)
     device = torch.device(device)
     k, v = folded.blocks[0].A.shape[:2]
     cin = folded.blocks[0].gcn_w.shape[0]
-    if len(folded.blocks) > MAX_BLOCKS or k > 4:
+    if device.type == "cuda" and (len(folded.blocks) > MAX_BLOCKS or k > 4):
         raise ValueError(f"the CUDA kernel takes at most {MAX_BLOCKS} blocks and 4 graph "
                          f"partitions; got {len(folded.blocks)} blocks, K={k}")
     blocks, ptrs, ints = [], [], []
@@ -163,7 +164,7 @@ def pack_backbone(folded: FoldedBackbone, device) -> PackedBackbone:
                              f"{tuple(block.A.shape)}, the plan hands it Cin={cc}, {(k, v, v)}")
         packed = pack_block(block, mode, device, name=f"blocks[{i}]")
         blocks.append(packed)
-        ptrs += packed.ptrs
+        ptrs += list(packed.ptrs)
         ints += [packed.c, stride, RESIDUAL_MODES[mode], packed.nnz]
         cc = packed.c
     classes = folded.cls_b.shape[0]
@@ -173,15 +174,6 @@ def pack_backbone(folded: FoldedBackbone, device) -> PackedBackbone:
         check_constant(name, getattr(folded, name), shape, device)
     return PackedBackbone(folded, tuple(blocks), (ctypes.c_void_p * len(ptrs))(*ptrs),
                           (ctypes.c_int * len(ints))(*ints), v, cin, k, classes)
-
-
-_packed_backbones = PackCache(capacity=64)
-
-
-def packed_backbone(folded: FoldedBackbone, device) -> PackedBackbone:
-    """:func:`pack_backbone`, once per ``folded``."""
-    device = torch.device(device)
-    return _packed_backbones.get(folded, str(device), lambda: pack_backbone(folded, device))
 
 
 _bound_lib = None
@@ -203,29 +195,28 @@ def _kernel():
     return _bound_lib
 
 
-def fused_backbone_forward(x: torch.Tensor, folded: FoldedBackbone) -> torch.Tensor:
-    """The whole backbone, ``x (N, T, V, Cin) -> logits (N, classes)``.
+def fused_backbone_forward(x: torch.Tensor, packed: PackedBackbone) -> torch.Tensor:
+    """The whole backbone, ``x (N, T, V, Cin) -> logits (N, classes)``, on the
+    constants :func:`pack_backbone` made (and checked) once.
 
-    A CPU tensor goes through :func:`fused_backbone_reference`; a CUDA tensor
-    through the CUDA kernel, one launch whatever the stage plan and N, built
-    at first use, on the constants :func:`packed_backbone` made (and checked)
-    the first time it saw ``folded``. Every launch adds one to
-    ``fused_backbone_forward.launches``.
+    A CPU tensor goes through :func:`fused_backbone_reference` on
+    ``packed.folded``; a CUDA tensor on the pack's device through the CUDA
+    kernel, one launch whatever the stage plan and N, built at first use.
+    Every launch adds one to ``fused_backbone_forward.launches``.
     """
     if x.dim() != 4 or x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError(
             "x must be a contiguous float32 (N, T, V, Cin) tensor, got "
             f"{x.dtype} {tuple(x.shape)} (contiguous={x.is_contiguous()})")
     n, t, v, cin = x.shape
+    folded = packed.folded
     if x.device.type == "cpu":
-        check_plan(folded)
         return fused_backbone_reference(x, folded)
-    if x.device.type != "cuda" or x.data_ptr() % 16:
-        raise ValueError(f"fused_backbone_forward runs on cpu or cuda (16-byte aligned x), "
-                         f"got {x.device}")
-    packed = packed_backbone(folded, x.device)
+    if x.device != folded.data_bn_scale.device or x.data_ptr() % 16:
+        raise ValueError(f"fused_backbone_forward runs on cpu or on the pack's device "
+                         f"{folded.data_bn_scale.device} (16-byte aligned x), got {x.device}")
     if (v, cin) != (packed.v, packed.cin):
-        raise ValueError(f"x has (V, Cin) = {(v, cin)}, the folded backbone takes "
+        raise ValueError(f"x has (V, Cin) = {(v, cin)}, the packed backbone takes "
                          f"{(packed.v, packed.cin)}")
     logits = torch.empty((n, packed.classes), device=x.device, dtype=torch.float32)
     if n == 0:
@@ -251,3 +242,20 @@ def fused_backbone_forward(x: torch.Tensor, folded: FoldedBackbone) -> torch.Ten
 
 
 fused_backbone_forward.launches = 0
+
+
+class WholeBackbone(nn.Module):
+    """A headed ``STGCANBackbone`` (its running statistics are folded) in one
+    launch of :func:`fused_backbone_forward`, folded and packed once, here.
+    The forward takes the classifier's contract and ignores ``sensor`` and
+    ``generator``; the pack is a plain attribute, so ``.to()`` moves nothing
+    a pointer table reads."""
+
+    def __init__(self, backbone):
+        super().__init__()
+        folded = fold_backbone(backbone)
+        self.packed = pack_backbone(folded, folded.data_bn_scale.device)
+
+    def forward(self, skeleton: torch.Tensor, sensor: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return fused_backbone_forward(skeleton, self.packed)

@@ -13,14 +13,14 @@ is ``hi + lo`` with both halves in TF32, and a product is
 accuracy. What the kernel reads (the weights' halves in the order of its
 ``wgmma`` operand, two folded shift tables, a table of pointers) is built
 once per :class:`FoldedBlockParams` by :func:`pack_block`, which is also where
-every constant is checked; a call checks ``x`` only.
+every constant is checked, and a call takes that :class:`PackedBlock` and
+checks ``x`` only.
 :func:`stgcan_block_emulated` repeats the kernel's arithmetic in plain
 PyTorch (for tests: it bounds the numerics where there is no card).
 """
 
 from __future__ import annotations
 
-import collections
 import ctypes
 from typing import Callable, NamedTuple, Optional, Tuple
 
@@ -223,8 +223,9 @@ def unpack_adjacency(packed: torch.Tensor, k: int, v: int) -> torch.Tensor:
 
 class PackedBlock(NamedTuple):
     """What the kernel reads of one block, built once by :func:`pack_block`.
-    It keeps ``folded`` (whose small tensors the kernel reads as they are)
-    and the derived tensors alive; ``ptrs`` is the kernel's pointer table."""
+    It keeps ``folded`` (whose small tensors the kernel reads as they are,
+    and which the plain version runs on) and the derived tensors alive;
+    ``ptrs`` is the kernel's pointer table."""
 
     folded: FoldedBlockParams
     residual_mode: str
@@ -235,7 +236,7 @@ class PackedBlock(NamedTuple):
     tconv_w: torch.Tensor          # packed, k-row = tap * round8(C) + c_in
     y_shift: torch.Tensor          # (C,) BN2 of the temporal conv's bias
     res_w: Optional[torch.Tensor]  # packed, k-row = i
-    ptrs: Tuple[Optional[int], ...]
+    ptrs: ctypes.Array             # 14 device pointers, NULL for an unused field
     v: int
     cin: int
     k: int
@@ -274,7 +275,9 @@ def pack_block(folded: FoldedBlockParams, residual_mode: str, device,
                name: str = "folded") -> PackedBlock:
     """Check every constant of ``folded`` against what the kernel reads
     through raw pointers on ``device`` and build the kernel's side of them.
-    Raises ``ValueError`` for what the kernel does not take."""
+    Raises ``ValueError`` for what the kernel does not take; the kernel's
+    size limits hold only for a card ``device`` (the CPU runs the plain
+    version at any width)."""
     if residual_mode not in RESIDUAL_MODES:
         raise ValueError(f"residual_mode must be one of {sorted(RESIDUAL_MODES)}, "
                          f"got {residual_mode!r}")
@@ -282,7 +285,7 @@ def pack_block(folded: FoldedBlockParams, residual_mode: str, device,
     k, v = folded.A.shape[0], folded.A.shape[1]
     cin = folded.gcn_w.shape[0]
     c = folded.bn1_scale.shape[0]
-    if not (4 <= c <= 256 and c % 4 == 0 and k <= 4):
+    if device.type == "cuda" and not (4 <= c <= 256 and c % 4 == 0 and k <= 4):
         raise ValueError(f"{name}: the CUDA kernel takes C <= 256, a multiple of 4, and at "
                          f"most 4 graph partitions; got C={c}, K={k}")
     shapes = block_constant_shapes(v, cin, k, c, residual_mode)
@@ -300,9 +303,9 @@ def pack_block(folded: FoldedBlockParams, residual_mode: str, device,
              folded.bn2_scale, y_shift, folded.se_w1, folded.se_b1, folded.se_w2,
              folded.se_b2, packed["res_w"], folded.res_scale if proj else None,
              folded.res_shift if proj else None)
+    ptrs = [None if t is None else t.data_ptr() for t in order]
     return PackedBlock(folded=folded, residual_mode=residual_mode, **packed,
-                       ptrs=tuple(None if t is None else t.data_ptr() for t in order),
-                       v=v, cin=cin, k=k, c=c)
+                       ptrs=(ctypes.c_void_p * len(ptrs))(*ptrs), v=v, cin=cin, k=k, c=c)
 
 
 def unpack_block(packed: PackedBlock) -> FoldedBlockParams:
@@ -320,39 +323,6 @@ def unpack_block(packed: PackedBlock) -> FoldedBlockParams:
         A=unpack_adjacency(packed.nbr, k, packed.v),
         gcn_w=mix.view(k, _round8(cin), c)[:, :cin].permute(1, 0, 2).reshape(cin, k * c),
         tconv_w=taps.view(TAPS, _round8(c), c)[:, :c].contiguous(), res_w=res)
-
-
-class PackCache:
-    """Kernel-side constants by the identity of the folded tuple they were
-    made from (a changed tuple, as from ``_replace``, is packed and checked
-    anew). An entry keeps its key alive, so an ``id`` is never reused while it
-    is cached; the least recently used of ``capacity`` entries goes first."""
-
-    def __init__(self, capacity: int = 256):
-        self.capacity = capacity
-        self._entries: "collections.OrderedDict[tuple, tuple]" = collections.OrderedDict()
-
-    def get(self, folded, extra, make: Callable):
-        key = (id(folded), extra)
-        entry = self._entries.get(key)
-        if entry is not None and entry[0] is folded:
-            self._entries.move_to_end(key)
-            return entry[1]
-        packed = make()
-        self._entries[key] = (folded, packed)
-        while len(self._entries) > self.capacity:
-            self._entries.popitem(last=False)
-        return packed
-
-
-_packed_blocks = PackCache()
-
-
-def packed_block(folded: FoldedBlockParams, residual_mode: str, device) -> PackedBlock:
-    """:func:`pack_block`, once per ``folded``."""
-    device = torch.device(device)
-    return _packed_blocks.get(folded, (residual_mode, str(device)),
-                              lambda: pack_block(folded, residual_mode, device))
 
 
 def stgcan_block_emulated(x: torch.Tensor, p: FoldedBlockParams, stride: int = 1,
@@ -442,18 +412,15 @@ def check_constant(name: str, t: Optional[torch.Tensor], shape, device) -> None:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, want {tuple(shape)}")
 
 
-def fused_stgcan_block(x: torch.Tensor, folded: FoldedBlockParams, stride: int = 1,
-                       residual_mode: str = "identity") -> torch.Tensor:
-    """One fused eval STGCAN block, ``x (N, T, V, Cin) -> (N, T_out, V, C)``.
+def fused_stgcan_block(x: torch.Tensor, packed: PackedBlock, stride: int = 1) -> torch.Tensor:
+    """One fused eval STGCAN block, ``x (N, T, V, Cin) -> (N, T_out, V, C)``,
+    on the constants :func:`pack_block` made (and checked) once.
 
-    A CPU tensor goes through :func:`stgcan_block_reference`; a CUDA tensor
-    through the CUDA kernel, which is built at first use, on the constants
-    :func:`packed_block` made (and checked) the first time it saw ``folded``.
-    Every launch adds one to ``fused_stgcan_block.launches``.
+    A CPU tensor goes through :func:`stgcan_block_reference` on
+    ``packed.folded``; a CUDA tensor on the packed block's device through the
+    CUDA kernel, which is built at first use. Every launch adds one to
+    ``fused_stgcan_block.launches``.
     """
-    if residual_mode not in RESIDUAL_MODES:
-        raise ValueError(f"residual_mode must be one of {sorted(RESIDUAL_MODES)}, "
-                         f"got {residual_mode!r}")
     if stride not in (1, 2):
         raise ValueError(f"stride must be 1 or 2, got {stride}")
     if x.dim() != 4 or x.dtype != torch.float32 or not x.is_contiguous():
@@ -461,18 +428,17 @@ def fused_stgcan_block(x: torch.Tensor, folded: FoldedBlockParams, stride: int =
             "x must be a contiguous float32 (N, T, V, Cin) tensor, got "
             f"{x.dtype} {tuple(x.shape)} (contiguous={x.is_contiguous()})")
     n, t, v, cin = x.shape
-    c = folded.bn1_scale.shape[0]
-    if residual_mode == "identity" and (cin != c or stride != 1):
+    c, mode = packed.c, packed.residual_mode
+    if mode == "identity" and (cin != c or stride != 1):
         raise ValueError(f"identity residual needs Cin == C and stride 1, got "
                          f"Cin={cin}, C={c}, stride={stride}")
     if x.device.type == "cpu":
-        return stgcan_block_reference(x, folded, stride, residual_mode)
-    if x.device.type != "cuda" or x.data_ptr() % 16:
-        raise ValueError(f"fused_stgcan_block runs on cpu or cuda (16-byte aligned x), "
-                         f"got {x.device}")
-    packed = packed_block(folded, residual_mode, x.device)
+        return stgcan_block_reference(x, packed.folded, stride, mode)
+    if x.device != packed.nbr.device or x.data_ptr() % 16:
+        raise ValueError(f"fused_stgcan_block runs on cpu or on the packed block's device "
+                         f"{packed.nbr.device} (16-byte aligned x), got {x.device}")
     if (v, cin) != (packed.v, packed.cin):
-        raise ValueError(f"x has (V, Cin) = {(v, cin)}, the folded block takes "
+        raise ValueError(f"x has (V, Cin) = {(v, cin)}, the packed block takes "
                          f"{(packed.v, packed.cin)}")
     t_out = (t - 1) // stride + 1
     out = torch.empty((n, t_out, v, c), device=x.device, dtype=torch.float32)
@@ -484,10 +450,8 @@ def fused_stgcan_block(x: torch.Tensor, folded: FoldedBlockParams, stride: int =
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.stgcan_block_forward(
-            x.data_ptr(), (ctypes.c_void_p * len(packed.ptrs))(*packed.ptrs),
-            scratch.data_ptr(), out.data_ptr(),
-            n, t, v, cin, packed.k, c, stride, RESIDUAL_MODES[residual_mode], packed.nnz,
-            stream)
+            x.data_ptr(), packed.ptrs, scratch.data_ptr(), out.data_ptr(),
+            n, t, v, cin, packed.k, c, stride, RESIDUAL_MODES[mode], packed.nnz, stream)
     if rc != 0:
         raise RuntimeError("stgcan_block kernel launch failed: "
                            + lib.stgcan_block_error_string(rc).decode())

@@ -16,15 +16,17 @@ MAX_T`` and width. :func:`fused_temporal_transformer` runs it for a CPU
 tensor and the CUDA kernel for a CUDA tensor, which takes ``F == WIDTH``
 and at most :data:`MAX_LAYERS` layers (:func:`kernel_takes`); every launch
 adds one to ``fused_temporal_transformer.launches``. The kernel multiplies
-in split TF32 (float32 accuracy).
+in split TF32 (float32 accuracy). :class:`FusedTemporalTransformer` is the
+module that serves a transformer this way.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn as nn
 import torch.nn.functional as F
 
 from fall_multimodal_tpu_torch.ops import build
@@ -195,3 +197,17 @@ def fused_temporal_transformer(x: torch.Tensor, packed: PackedTransformer) -> to
 
 
 fused_temporal_transformer.launches = 0
+
+
+class FusedTemporalTransformer(nn.Module):
+    """A ``TemporalTransformer`` that :func:`kernel_takes` in one launch of
+    :func:`fused_temporal_transformer`, packed once, here, as a plain
+    attribute (``.to()`` moves nothing the kernel reads)."""
+
+    def __init__(self, transformer):
+        super().__init__()
+        self.packed = pack_temporal_transformer(transformer)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return fused_temporal_transformer(x, self.packed)

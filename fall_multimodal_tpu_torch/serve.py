@@ -2,20 +2,15 @@
 
 Counterpart of ``fall_multimodal_tpu/serve.py``:
 
+* :func:`with_kernels` — the one route from a model to the kernels: every
+  submodule a kernel computes is swapped for that kernel's module by type
+  (:data:`KERNEL_RULES`: a headed STGCAN backbone to K2 in one launch, a
+  headless one to K1 a block, a ``TemporalTransformer`` the kernel takes to
+  K3); every other module stays a plain PyTorch module;
 * :class:`Predictor` — loads weights into the model of any registered
-  family and folds its STGCAN backbones once: the single-stream ``stgcan``
-  classifier runs as one whole-backbone kernel launch
-  (:func:`~fall_multimodal_tpu_torch.ops.fused_backbone_v2.
-  fused_backbone_forward`), each stream of the two- and three-stream models
-  through a :class:`~fall_multimodal_tpu_torch.ops.fused_backbone.
-  FusedBackbone` (every block through the fused STGCAN-block kernel),
-  ``targcn``'s temporal transformer as one launch of
-  :func:`~fall_multimodal_tpu_torch.ops.temporal_transformer.
-  fused_temporal_transformer` where that kernel takes its shapes, the
-  sensor-only models and the other Gen-3 / Gen-1 families (``musa``, the
-  skeleton transformers and their ensemble) as plain modules; pads
-  ragged requests to ``batch_size`` and chunks larger ones; with
-  ``num_copies`` > 1 it averages the logits of k time slices of each window
+  family and serves it through :func:`with_kernels`; pads ragged requests
+  to ``batch_size`` and chunks larger ones; with ``num_copies`` > 1 it
+  averages the logits of k time slices of each window
   (:func:`~fall_multimodal_tpu_torch.train.loop.k_copies_logits`), each
   slice through the same kernels;
 * :func:`checkpoint_state_dict` — the weights of a checkpoint directory
@@ -35,9 +30,10 @@ Everything runs on the card (``device="cuda"``) unless the caller passes
 Served results are full float32 whatever the process-wide TF32 switches say
 (PyTorch lets cuDNN convolutions and LSTMs use TF32 by default, about three
 decimal digits): the kernels multiply in split TF32, which keeps float32
-accuracy, and :meth:`Predictor.forward` runs its plain modules (sensor head,
-fusion head, the sensor-only families) under :func:`full_float32`, which
-switches TF32 off for the call and puts the caller's settings back.
+accuracy, and :meth:`Predictor.forward` runs the served module (its plain
+modules: sensor head, fusion head, the sensor-only families) under
+:func:`full_float32`, which switches TF32 off for the call and puts the
+caller's settings back.
 """
 
 from __future__ import annotations
@@ -49,28 +45,51 @@ from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 from fall_multimodal_tpu_torch.configs import Config
 from fall_multimodal_tpu_torch.interop import load_into, load_state_dict_file
-from fall_multimodal_tpu_torch.models import (
-    STGCANClassifier,
-    TARGCN,
-    ThreeStreamGSTCAN,
-    TwoStreamSTGCAN,
-    build_model,
-    uses_sensor,
-)
-from fall_multimodal_tpu_torch.models.stgcan import motion_stream
+from fall_multimodal_tpu_torch.models import TARGCN, STGCANBackbone, build_model, uses_sensor
+from fall_multimodal_tpu_torch.models.targcn import TemporalTransformer
 from fall_multimodal_tpu_torch.ops.fused_backbone import FusedBackbone
-from fall_multimodal_tpu_torch.ops.fused_backbone_v2 import fold_backbone, fused_backbone_forward
+from fall_multimodal_tpu_torch.ops.fused_backbone_v2 import WholeBackbone
 from fall_multimodal_tpu_torch.ops.temporal_transformer import (
-    fused_temporal_transformer,
+    FusedTemporalTransformer,
     kernel_takes,
-    pack_temporal_transformer,
 )
 from fall_multimodal_tpu_torch.train.loop import k_copies_logits
 from fall_multimodal_tpu_torch.utils.device import full_float32, resolve_device, synchronize
 from fall_multimodal_tpu_torch.utils.profiling import span
+
+# (module type, whether the kernel takes this module, the kernel's module
+# built from it): the first rule that holds for a module replaces it.
+KERNEL_RULES = (
+    (STGCANBackbone, lambda m: m.cls is not None, WholeBackbone),          # K2
+    (STGCANBackbone, lambda m: m.cls is None, FusedBackbone),              # K1 a block
+    (TemporalTransformer, kernel_takes, FusedTemporalTransformer),         # K3
+)
+
+
+def with_kernels(model: nn.Module) -> nn.Module:
+    """``model`` with every submodule a kernel computes, the root included,
+    replaced by that kernel's module (:data:`KERNEL_RULES`; the kernels' packs
+    are made here, once, on the device the weights are on). ``model`` is not
+    changed: the result shares every module it does not replace and copies
+    only the containers on the path to one it does, so the weights are held
+    once."""
+    for kind, takes, kernel in KERNEL_RULES:
+        if isinstance(model, kind) and takes(model):
+            return kernel(model).eval()
+    swapped = {name: with_kernels(child) for name, child in model._modules.items()
+               if child is not None}
+    swapped = {name: m for name, m in swapped.items() if m is not model._modules[name]}
+    if not swapped:
+        return model
+    out = copy.copy(model)
+    out._modules = dict(model._modules)
+    for name, module in swapped.items():
+        setattr(out, name, module)
+    return out
 
 
 class Predictor:
@@ -82,6 +101,9 @@ class Predictor:
     take ``sensor=None``. ``num_copies`` > 1 serves the Gen-3 k-copies
     rule: the mean logits of ``num_copies`` contiguous time slices of each
     window (``Multimodal_Fall3/main.py:150-161``).
+
+    ``model`` is the loaded model with its stock modules; ``served`` is
+    :func:`with_kernels` of it, what :meth:`forward` runs.
 
     ``Predictor.calls`` counts :meth:`predict_logits` calls of every
     predictor; under a profiler each call is a ``predict_logits`` span with
@@ -106,18 +128,10 @@ class Predictor:
         if num_copies > 1 and isinstance(self.model, TARGCN):
             raise ValueError(f"num_copies={num_copies}: TARGCN takes only whole windows of "
                              f"T={config.data.seq_len} frames, so it serves num_copies=1")
-        # what the family's forward runs through; folded or packed once, here
-        self.folded = self.pts_fb = self.mot_fb = self.packed_ta = None
-        if isinstance(self.model, STGCANClassifier):
-            self.folded = fold_backbone(self.model)
-        elif isinstance(self.model, (TwoStreamSTGCAN, ThreeStreamGSTCAN)):
-            self.pts_fb = FusedBackbone(self.model.pts_stream)
-            self.mot_fb = FusedBackbone(self.model.mot_stream)
-        elif isinstance(self.model, TARGCN) and kernel_takes(self.model.encoder.trans_layer_T):
-            self.packed_ta = pack_temporal_transformer(self.model.encoder.trans_layer_T)
+        self.served = with_kernels(self.model)
 
     def with_batch_size(self, batch_size: int) -> "Predictor":
-        """A predictor over the same model and folded weights at another
+        """A predictor over the same model and served module at another
         batch size (e.g. batch 1 for streaming), with the same
         ``num_copies``."""
         if batch_size == self.batch_size:
@@ -153,32 +167,17 @@ class Predictor:
 
     def forward(self, skeleton: torch.Tensor,
                 sensor: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Logits of one batch already on the device: the single-stream
-        classifier as one whole-backbone kernel launch, the two- and
-        three-stream models through one kernel launch per block of each
-        stream, TARGCN's temporal transformer as one kernel launch (its
-        recurrence and head as plain modules) where the kernel takes its
-        shapes, the other families as plain modules, each once per time
-        slice under k-copies. The plain modules run in full float32
-        (:func:`full_float32`)."""
+        """Logits of one batch already on the device, through the served
+        module (:func:`with_kernels`), once per time slice under k-copies.
+        The plain modules run in full float32 (:func:`full_float32`)."""
         if self.num_copies > 1:
             return k_copies_logits(self._forward, skeleton, sensor, self.num_copies)
         return self._forward(skeleton, sensor)
 
     def _forward(self, skeleton: torch.Tensor,
                  sensor: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if self.folded is not None:
-            return fused_backbone_forward(skeleton, self.folded)
         with full_float32():
-            if self.packed_ta is not None:
-                return self.model.forward_with(
-                    skeleton, lambda x: fused_temporal_transformer(x, self.packed_ta))
-            if self.pts_fb is None:
-                return self.model(skeleton, sensor)
-            feats = [self.pts_fb(skeleton), self.mot_fb(motion_stream(skeleton).contiguous())]
-            if isinstance(self.model, ThreeStreamGSTCAN):
-                feats.append(self.model.sensor(sensor))
-            return self.model.fcn(torch.cat(feats, dim=-1))
+            return self.served(skeleton, sensor)
 
     @torch.inference_mode()
     def predict_logits(self, skeleton: np.ndarray,

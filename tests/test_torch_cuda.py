@@ -22,13 +22,16 @@ from fall_multimodal_tpu_torch.models.init import seeded_model
 from fall_multimodal_tpu_torch.models.stgcan import STGCANBackbone, STGCANBlock
 from fall_multimodal_tpu_torch.ops.fused_backbone import FusedBackbone
 from fall_multimodal_tpu_torch.ops.fused_backbone_v2 import (
+    WholeBackbone,
     fold_backbone,
     fused_backbone_forward,
     fused_backbone_reference,
+    pack_backbone,
 )
 from fall_multimodal_tpu_torch.ops.stgcan_block import (
     fold_block_params,
     fused_stgcan_block,
+    pack_block,
     stgcan_block_reference,
 )
 from fall_multimodal_tpu_torch.serve import Predictor
@@ -101,7 +104,7 @@ def test_kernel_matches_reference(cuda_device, no_tf32, n, cin, cout, stride,  #
     gen = torch.Generator().manual_seed(cin + cout)
     x = torch.randn((n, t, 14, cin), generator=gen).to(cuda_device)
     before = fused_stgcan_block.launches
-    out = fused_stgcan_block(x, folded, stride=stride, residual_mode=mode)
+    out = fused_stgcan_block(x, pack_block(folded, mode, cuda_device), stride=stride)
     torch.cuda.synchronize()
     assert fused_stgcan_block.launches == before + 1
     torch.testing.assert_close(out, stgcan_block_reference(x, folded, stride, mode),
@@ -120,7 +123,7 @@ def test_kernel_takes_an_odd_joint_count(cuda_device, no_tf32, v):  # noqa: F811
     A = (torch.randn((3, v, v), generator=gen) / v ** 0.5).to(cuda_device)
     folded, mode = fold_block_params(block, A)
     x = torch.randn((3, 12, v, 24), generator=gen).to(cuda_device)
-    out = fused_stgcan_block(x, folded, stride=2, residual_mode=mode)
+    out = fused_stgcan_block(x, pack_block(folded, mode, cuda_device), stride=2)
     torch.cuda.synchronize()
     torch.testing.assert_close(out, stgcan_block_reference(x, folded, 2, mode), rtol=0, atol=TOL)
 
@@ -141,6 +144,8 @@ def test_backbone_runs_every_block_through_the_kernel(cuda_device, no_tf32):  # 
 
 @pytest.mark.cuda
 def test_kernel_refuses_what_it_does_not_take(cuda_device):  # noqa: F811
+    """What the kernel does not take is refused where a block is packed for
+    the card; a launch refuses an ``x`` off the pack's device."""
     A = torch.tensor(build_adjacency("coco_cut", "spatial"), dtype=torch.float32)
     x = torch.zeros((2, 9, 14, 8), device=cuda_device)
     for cout, error in ((512, "C <= 256"), (64, "on cuda")):
@@ -148,10 +153,14 @@ def test_kernel_refuses_what_it_does_not_take(cuda_device):  # noqa: F811
         folded, mode = fold_block_params(block, A.to(cuda_device))
         if cout == 64:
             folded = folded._replace(A=folded.A.cpu())
-        before = fused_stgcan_block.launches
         with pytest.raises(ValueError, match=error):
-            fused_stgcan_block(x, folded, residual_mode=mode)
-        assert fused_stgcan_block.launches == before
+            pack_block(folded, mode, cuda_device)
+    block = _randomize(STGCANBlock(8, 64, 3), 0)
+    packed = pack_block(*fold_block_params(block, A), "cpu")
+    before = fused_stgcan_block.launches
+    with pytest.raises(ValueError, match="packed block's device"):
+        fused_stgcan_block(x, packed)
+    assert fused_stgcan_block.launches == before
 
 
 @pytest.mark.cuda
@@ -165,18 +174,20 @@ def test_kernels_are_deterministic_at_batch_128(cuda_device, no_tf32):  # noqa: 
     for cin, cout, stride, t in ((64, 64, 1, 30), (64, 128, 2, 30), (128, 256, 2, 15)):
         block = _randomize(STGCANBlock(cin, cout, 3, stride=stride, residual=True), cout)
         folded, mode = fold_block_params(block.to(cuda_device), A.to(cuda_device))
+        packed = pack_block(folded, mode, cuda_device)
         x = torch.randn((128, t, 14, cin), generator=torch.Generator().manual_seed(t))
         x = x.to(cuda_device)
-        first = fused_stgcan_block(x, folded, stride, mode)
+        first = fused_stgcan_block(x, packed, stride)
         for _ in range(19):
-            assert torch.equal(fused_stgcan_block(x, folded, stride, mode), first)
+            assert torch.equal(fused_stgcan_block(x, packed, stride), first)
     torch.manual_seed(0)
     folded = fold_backbone(_scaled(STGCANBackbone(3, num_classes=11), 0).to(cuda_device))
+    packed = pack_backbone(folded, cuda_device)
     x = torch.randn((128, 30, 14, 3), generator=torch.Generator().manual_seed(3))
     x = x.to(cuda_device)
-    first = fused_backbone_forward(x, folded)
+    first = fused_backbone_forward(x, packed)
     for _ in range(19):
-        assert torch.equal(fused_backbone_forward(x, folded), first)
+        assert torch.equal(fused_backbone_forward(x, packed), first)
 
 
 # ------------------------------------------- the whole-backbone kernel
@@ -215,7 +226,7 @@ def test_backbone_kernel_matches_reference(cuda_device, no_tf32, n, classes, sta
     x = torch.randn((n, 30, 14, cin), generator=torch.Generator().manual_seed(n))
     x = x.to(cuda_device)
     k2, k1 = fused_backbone_forward.launches, fused_stgcan_block.launches
-    out = fused_backbone_forward(x, folded)
+    out = fused_backbone_forward(x, pack_backbone(folded, cuda_device))
     torch.cuda.synchronize()
     assert fused_backbone_forward.launches == k2 + 1       # one launch per forward
     assert fused_stgcan_block.launches == k1
@@ -238,12 +249,16 @@ def test_backbone_kernel_refuses_what_it_does_not_take(cuda_device):  # noqa: F8
         (folded._replace(blocks=(folded.blocks[0]._replace(
             gcn_b=folded.blocks[0].gcn_b.double()), folded.blocks[1])), r"blocks\[0\].gcn_b"),
     ]
-    for bad, error in broken:
-        before = fused_backbone_forward.launches
+    for bad, error in broken:                   # refused where it is packed for the card
         with pytest.raises(ValueError, match=error):
-            fused_backbone_forward(x, bad)
-        assert fused_backbone_forward.launches == before
-    assert fused_backbone_forward(x[:0], folded).shape == (0, 2)
+            pack_backbone(bad, cuda_device)
+    cpu_pack = pack_backbone(fold_backbone(_scaled(STGCANBackbone(3, num_classes=2,
+                                                                  stages=SHORT), 0)), "cpu")
+    before = fused_backbone_forward.launches
+    with pytest.raises(ValueError, match="pack's device"):
+        fused_backbone_forward(x, cpu_pack)
+    assert fused_backbone_forward.launches == before
+    assert fused_backbone_forward(x[:0], pack_backbone(folded, cuda_device)).shape == (0, 2)
 
 
 # ------------------------------------------------- full float32 when served
@@ -429,16 +444,17 @@ def test_k_copies_runs_the_kernels_at_t15(cuda_device, no_tf32, preset, k1, k2):
         skel, sens)
     np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
     x = torch.from_numpy(skel[:, :15].copy()).to(cuda_device)
-    if pred.folded is not None:
-        torch.testing.assert_close(fused_backbone_forward(x, pred.folded),
-                                   fused_backbone_reference(x, pred.folded), rtol=0, atol=TOL)
+    if isinstance(pred.served, WholeBackbone):
+        packed = pred.served.packed
+        torch.testing.assert_close(fused_backbone_forward(x, packed),
+                                   fused_backbone_reference(x, packed.folded), rtol=0, atol=TOL)
         return
-    for fb, t in ((pred.pts_fb, 15), (pred.mot_fb, 14)):
-        for folded, stride, mode in fb.blocks:
-            xb = torch.randn((8, t, 14, folded.gcn_w.shape[0]),
+    for fb, t in ((pred.served.pts_stream, 15), (pred.served.mot_stream, 14)):
+        for packed, (stride, mode) in zip(fb.blocks, fb.folded.stage_plan):
+            xb = torch.randn((8, t, 14, packed.cin),
                              generator=torch.Generator().manual_seed(t)).to(cuda_device)
-            torch.testing.assert_close(fused_stgcan_block(xb, folded, stride, mode),
-                                       stgcan_block_reference(xb, folded, stride, mode),
+            torch.testing.assert_close(fused_stgcan_block(xb, packed, stride),
+                                       stgcan_block_reference(xb, packed.folded, stride, mode),
                                        rtol=0, atol=TOL)
             t = (t - 1) // stride + 1
 
@@ -672,12 +688,15 @@ def test_a_targcn_predictor_runs_its_transformer_in_one_kernel_launch(cuda_devic
     """A TARGCN ``Predictor`` on the card, under PyTorch's default TF32
     flags: one K3 launch a forward (two for a request of two chunks), and
     its logits equal the model's stock forward under ``full_float32``."""
-    from fall_multimodal_tpu_torch.ops.temporal_transformer import fused_temporal_transformer
+    from fall_multimodal_tpu_torch.ops.temporal_transformer import (
+        FusedTemporalTransformer,
+        fused_temporal_transformer,
+    )
     from fall_multimodal_tpu_torch.utils.device import full_float32
 
     cfg, model, _ = _targcn_transformer("cpu")
     pred = Predictor(cfg, model.state_dict(), batch_size=64, device=cuda_device)
-    assert pred.packed_ta is not None
+    assert isinstance(pred.served.encoder.trans_layer_T, FusedTemporalTransformer)
     skel = np.random.default_rng(4).normal(size=(100, 30, 14, 3)).astype(np.float32)
     launches = fused_temporal_transformer.launches
     got = pred.predict_logits(skel)

@@ -39,7 +39,7 @@ from fall_multimodal_tpu_torch.models import (
     model_names,
     uses_sensor,
 )
-from fall_multimodal_tpu_torch.ops.fused_backbone_v2 import fused_backbone_forward
+from fall_multimodal_tpu_torch.ops.fused_backbone_v2 import WholeBackbone, fused_backbone_forward
 from fall_multimodal_tpu_torch.ops.stgcan_block import fused_stgcan_block
 from fall_multimodal_tpu_torch.serve import (
     Predictor,
@@ -237,7 +237,7 @@ def stgcan_served():
 
 def test_stgcan_predictor_matches_jax_predictor(stgcan_served):
     jcfg, variables, cfg, sd, skel, sensor, pred = stgcan_served
-    assert not pred.requires_sensor and pred.folded is not None and pred.pts_fb is None
+    assert not pred.requires_sensor and isinstance(pred.served, WholeBackbone)
     ref = JaxPredictor(jcfg, variables, batch_size=4).predict_logits(skel)   # pad + chunk
     assert np.ptp(ref, axis=0).min() > 0.05
     np.testing.assert_allclose(pred.predict_logits(skel), ref, atol=5e-5)

@@ -9,8 +9,8 @@ is compared at rtol = atol = 1e-5, the tolerance of those tests: the same
 float32 arithmetic summed in another order (the JAX kernel folds the
 adjacency into one dense matrix, the port keeps it factored).
 
-Also here: the wrapper's checks on the CPU, and the kernel libraries'
-content hash (``ops/build.py``).
+Also here: the wrapper's and the packing's checks on the CPU, and the kernel
+libraries' content hash (``ops/build.py``).
 """
 
 import os
@@ -31,6 +31,7 @@ from fall_multimodal_tpu_torch.ops.fused_backbone_v2 import (
     fold_backbone,
     fused_backbone_forward,
     fused_backbone_reference,
+    pack_backbone,
 )
 from fall_multimodal_tpu_torch.ops.stgcan_block import fused_stgcan_block
 from torch_port_helpers import random_init, t, to_numpy
@@ -89,7 +90,7 @@ def test_reference_matches_flax_backbone(case):
 def test_wrapper_on_cpu_runs_the_plain_version(case):
     *_, x, _, folded = case
     k2, k1 = fused_backbone_forward.launches, fused_stgcan_block.launches
-    out = fused_backbone_forward(t(x), folded)
+    out = fused_backbone_forward(t(x), pack_backbone(folded, "cpu"))
     assert (fused_backbone_forward.launches, fused_stgcan_block.launches) == (k2, k1)
     torch.testing.assert_close(out, fused_backbone_reference(t(x), folded), rtol=0, atol=0)
 
@@ -106,8 +107,12 @@ def test_fold_shapes_and_plan():
 
 
 def test_fold_backbone_needs_a_cls_head():
+    """A headless backbone folds (K1 runs it a block a launch); K2 refuses
+    its fold where it is packed."""
+    headless = fold_backbone(STGCANBackbone(3, stages=NARROW).eval())
+    assert headless.cls_w is None and headless.cls_b is None
     with pytest.raises(ValueError, match="cls head"):
-        fold_backbone(STGCANBackbone(3, stages=NARROW).eval())
+        pack_backbone(headless, "cpu")
 
 
 def _narrow_folded():
@@ -122,7 +127,7 @@ def _narrow_folded():
 def test_wrapper_refuses_bad_inputs(make_x, error):
     before = fused_backbone_forward.launches
     with pytest.raises(ValueError, match=error):
-        fused_backbone_forward(make_x(), _narrow_folded())
+        fused_backbone_forward(make_x(), pack_backbone(_narrow_folded(), "cpu"))
     assert fused_backbone_forward.launches == before
 
 
@@ -135,8 +140,8 @@ def test_wrapper_refuses_bad_inputs(make_x, error):
     (lambda f: f._replace(blocks=()), "0 blocks"),
 ], ids=["plan_length", "identity_width", "stride", "empty"])
 def test_wrapper_refuses_a_plan_that_does_not_fit(broken, error):
-    with pytest.raises(ValueError, match=error):
-        fused_backbone_forward(torch.zeros((1, 30, 14, 3)), broken(_narrow_folded()))
+    with pytest.raises(ValueError, match=error):                # refused where it is packed
+        pack_backbone(broken(_narrow_folded()), "cpu")
 
 
 # ------------------------------------------------------------ ops/build.py

@@ -20,6 +20,7 @@ from fall_multimodal_tpu.configs import load_config as jax_load_config
 from fall_multimodal_tpu_torch import serve
 from fall_multimodal_tpu_torch.configs import load_config, preset_path
 from fall_multimodal_tpu_torch.models.init import seeded_model
+from fall_multimodal_tpu_torch.ops.fused_backbone import FusedBackbone
 from fall_multimodal_tpu_torch.serve import Predictor, export_pt2, load_pt2
 from fall_multimodal_tpu_torch.train import build_optimizer, create_train_state
 from fall_multimodal_tpu_torch.utils.checkpoint import Checkpointer
@@ -75,7 +76,8 @@ def test_from_checkpoint_serves_best_latest_and_the_prev_copy(tmp_path):
         got = Predictor.from_checkpoint(cfg, str(tmp_path / "ckpt"), which=which,
                                         batch_size=4, device="cpu")
         np.testing.assert_array_equal(got.predict_logits(skel, sens), want[which])
-        assert got.device == torch.device("cpu") and got.pts_fb is not None
+        assert got.device == torch.device("cpu")
+        assert isinstance(got.served.pts_stream, FusedBackbone)
     # a crash inside the swap leaves only best.prev: it is served
     os.rename(tmp_path / "ckpt" / "best", tmp_path / "ckpt" / "best.prev")
     got = Predictor.from_checkpoint(cfg, str(tmp_path / "ckpt"), batch_size=4, device="cpu")

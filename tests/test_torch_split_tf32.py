@@ -197,11 +197,13 @@ def test_constants_are_checked_once_at_packing(monkeypatch):
     calls = []
     real = sb.check_constant
     monkeypatch.setattr(sb, "check_constant", lambda *a: (calls.append(a[0]), real(*a))[1])
-    first = sb.packed_block(folded, mode, "cpu")
+    packed = sb.pack_block(folded, mode, "cpu")
     assert len(calls) == 16                       # every field of a projecting block
-    assert sb.packed_block(folded, mode, "cpu") is first and len(calls) == 16
-    changed = folded._replace(se_b2=folded.se_b2.clone())
-    assert sb.packed_block(changed, mode, "cpu") is not first and len(calls) == 32
+    x = _x((2, 9, 14, 8), 0)
+    out = sb.fused_stgcan_block(x, packed)
+    assert len(calls) == 16                       # a launch checks x only
+    torch.testing.assert_close(out, sb.stgcan_block_reference(x, folded, 1, mode),
+                               rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("broken,error", [
@@ -213,13 +215,16 @@ def test_constants_are_checked_once_at_packing(monkeypatch):
 def test_a_bad_constant_is_refused_where_it_is_packed(broken, error):
     folded, mode = _block(8, 16, 1, True)
     with pytest.raises(ValueError, match=error):
-        sb.packed_block(broken(folded), mode, "cpu")
+        sb.pack_block(broken(folded), mode, "cpu")
 
 
 def test_a_block_too_wide_for_the_kernel_is_refused_at_packing():
+    """The kernel's size limits hold where a block is packed for the card;
+    the CPU's plain version takes any width."""
     folded, mode = _block(8, 260, 1, True)
     with pytest.raises(ValueError, match="C <= 256"):
-        sb.pack_block(folded, mode, "cpu")
+        sb.pack_block(folded, mode, "cuda")
+    assert sb.pack_block(folded, mode, "cpu").c == 260
 
 
 def test_backbone_constants_are_checked_once_at_packing(monkeypatch):
@@ -231,28 +236,22 @@ def test_backbone_constants_are_checked_once_at_packing(monkeypatch):
     for module in (sb, bb):
         monkeypatch.setattr(module, "check_constant",
                             lambda *a: (calls.append(a[0]), real(*a))[1])
-    packed = bb.packed_backbone(folded, "cpu")
+    packed = bb.pack_backbone(folded, "cpu")
     n = len(calls)
     assert n == 13 + 13 + 16 + 4 and "blocks[2].res_w" in calls and "cls_w" in calls
-    assert bb.packed_backbone(folded, "cpu") is packed and len(calls) == n
+    x = _x((2, 30, 14, 3), 0)
+    out = bb.fused_backbone_forward(x, packed)
+    assert len(calls) == n                        # a launch checks x only
+    torch.testing.assert_close(out, bb.fused_backbone_reference(x, folded), rtol=0, atol=0)
     assert len(packed.ptrs) == 3 * 14 and list(packed.ints) == [16, 1, 0, 40, 16, 1, 1, 40, 32, 2, 2, 40]
     assert packed.scratch_floats(30) == (30 * 14 * 16, 30 * 14 * 32)
     bad = folded._replace(cls_w=folded.cls_w[:, :1].contiguous())
     with pytest.raises(ValueError, match="cls_w has shape"):
-        bb.packed_backbone(bad, "cpu")
+        bb.pack_backbone(bad, "cpu")
     bad = folded._replace(blocks=folded.blocks[:2] + (folded.blocks[2]._replace(
         bn2_shift=folded.blocks[2].bn2_shift.double()),))
     with pytest.raises(ValueError, match=r"blocks\[2\].bn2_shift must be"):
-        bb.packed_backbone(bad, "cpu")
-
-
-def test_pack_cache_forgets_its_oldest_entry():
-    cache = sb.PackCache(capacity=2)
-    keys = [(i,) for i in range(3)]
-    made = [cache.get(key, "cpu", lambda key=key: object()) for key in keys]
-    assert cache.get(keys[2], "cpu", lambda: None) is made[2]
-    assert cache.get(keys[1], "cpu", lambda: None) is made[1]
-    assert cache.get(keys[0], "cpu", lambda: "again") == "again"       # was evicted
+        bb.pack_backbone(bad, "cpu")
 
 
 # ------------------------------------------------------ full float32 serving

@@ -24,6 +24,7 @@ from fall_multimodal_tpu_torch.ops.stgcan_block import (
     FoldedBlockParams,
     fold_block_params,
     fused_stgcan_block,
+    pack_block,
     stgcan_block_reference,
 )
 from torch_port_helpers import port_block, random_init, t, to_numpy
@@ -97,7 +98,7 @@ def _small(rng):
 def test_wrapper_on_cpu_takes_the_plain_path(rng):
     x, folded, mode = _small(rng)
     before = fused_stgcan_block.launches
-    out = fused_stgcan_block(x, folded, stride=2, residual_mode=mode)
+    out = fused_stgcan_block(x, pack_block(folded, mode, "cpu"), stride=2)
     assert fused_stgcan_block.launches == before == 0
     torch.testing.assert_close(out, stgcan_block_reference(x, folded, 2, mode),
                                rtol=0, atol=0)
@@ -105,9 +106,12 @@ def test_wrapper_on_cpu_takes_the_plain_path(rng):
 
 def test_wrapper_refuses_bad_inputs(rng):
     x, folded, mode = _small(rng)
+    packed = pack_block(folded, mode, "cpu")
     with pytest.raises(ValueError, match="contiguous float32"):
-        fused_stgcan_block(x.transpose(1, 2), folded, stride=2, residual_mode=mode)
+        fused_stgcan_block(x.transpose(1, 2), packed, stride=2)
     with pytest.raises(ValueError, match="contiguous float32"):
-        fused_stgcan_block(x.double(), folded, stride=2, residual_mode=mode)
-    with pytest.raises(ValueError, match="residual_mode"):
-        fused_stgcan_block(x, folded, stride=2, residual_mode="sum")
+        fused_stgcan_block(x.double(), packed, stride=2)
+    with pytest.raises(ValueError, match="stride must be 1 or 2"):
+        fused_stgcan_block(x, packed, stride=3)
+    with pytest.raises(ValueError, match="residual_mode"):    # refused where it is packed
+        pack_block(folded, "sum", "cpu")

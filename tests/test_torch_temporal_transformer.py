@@ -1,9 +1,9 @@
 """Kernel K3's CPU side (``ops/temporal_transformer.py``): the packed plain
 version against ``TemporalTransformer``, the shape rule that decides where
-a TARGCN ``Predictor`` packs its transformer, the packed path of a CPU
-``Predictor`` against the model's own forward, its spans, and the export
-of a TARGCN, which keeps the stock modules. The kernel itself runs on the
-card only (``tests/test_torch_cuda.py``)."""
+a TARGCN ``Predictor`` serves its transformer through the kernel's module,
+the packed path of a CPU ``Predictor`` against the model's own forward, its
+spans, and the export of a TARGCN, which keeps the stock modules. The
+kernel itself runs on the card only (``tests/test_torch_cuda.py``)."""
 
 import json
 import os
@@ -18,6 +18,7 @@ from fall_multimodal_tpu_torch.models.init import seeded_model
 from fall_multimodal_tpu_torch.models.targcn import TemporalTransformer
 from fall_multimodal_tpu_torch.ops.temporal_transformer import (
     MAX_T,
+    FusedTemporalTransformer,
     fused_temporal_transformer,
     kernel_takes,
     layer_layout,
@@ -98,7 +99,9 @@ def test_the_shape_rule_packs_what_the_kernel_takes(kwargs, frames, packed):
             "data.seq_len": frames, **{f"model.kwargs.{k}": v for k, v in kwargs.items()}})
     pred = Predictor(cfg, seeded_model(cfg).state_dict(), batch_size=2, device="cpu")
     assert kernel_takes(pred.model.encoder.trans_layer_T) is packed
-    assert (pred.packed_ta is not None) is packed
+    served = pred.served.encoder.trans_layer_T
+    assert isinstance(served, FusedTemporalTransformer) is packed
+    assert (served is pred.model.encoder.trans_layer_T) is not packed
     skel = np.random.default_rng(1).normal(size=(3, frames, 14, 3)).astype(np.float32)
     with torch.no_grad():
         want = pred.model(torch.from_numpy(skel)).numpy()
@@ -114,7 +117,8 @@ def test_the_kernel_takes_at_most_two_layers():
 def test_a_cpu_targcn_predictor_takes_the_packed_path():
     cfg = _targcn()
     pred = Predictor(cfg, seeded_model(cfg, seed=3).state_dict(), batch_size=4, device="cpu")
-    assert pred.packed_ta is not None and pred.packed_ta.weights.device.type == "cpu"
+    ta = pred.served.encoder.trans_layer_T
+    assert isinstance(ta, FusedTemporalTransformer) and ta.packed.weights.device.type == "cpu"
     skel = _windows(6, seed=2)                          # two chunks, the second padded
     calls = []
     real = pred.model.encoder.trans_layer_T.forward
@@ -127,7 +131,7 @@ def test_a_cpu_targcn_predictor_takes_the_packed_path():
     with torch.no_grad():
         want = pred.model(torch.from_numpy(skel)).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
-    assert pred.with_batch_size(1).packed_ta is pred.packed_ta
+    assert pred.with_batch_size(1).served is pred.served
     np.testing.assert_allclose(pred.with_batch_size(1).predict_logits(skel[:1]), want[:1],
                                rtol=0, atol=TOL)
 
