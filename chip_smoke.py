@@ -6,10 +6,12 @@ Builds the port's CUDA kernels from ``fall_multimodal_tpu_torch/ops/csrc``
 and holds each against its plain PyTorch version at every shape its serving
 path gives it: the STGCAN-block kernel at the flagship's 14 block shapes, the
 whole-backbone kernel at the single-stream ``stgcan`` model's full width (2
-and 11 classes) and on a short stage plan, and kernel K3 (TARGCN's temporal
+and 11 classes) and on a short stage plan, kernel K3 (TARGCN's temporal
 transformer) at the ``targcn-serve-b8192`` cell's batch of 8,192 windows
-and at batch 1, also against the stock modules. Serves the reference checkpoint
-and a seeded random flagship (``gstcan_urfall_3stream``, full widths, batch
+and at batch 1, also against the stock modules, and kernel K4 (one
+TARGCN graph-GRU layer a launch) for both layers at batch 8,192, 1 and
+8,191, against its plain version and the stock ``scan``. Serves the
+reference checkpoint and a seeded random flagship (``gstcan_urfall_3stream``, full widths, batch
 128) through ``Predictor`` and the HTTP server, then a seeded ``stgcan``
 (``default_urfall``; one whole-backbone launch per forward) and a
 ``two_stgcan`` the same way, and prints timings. The flagship is served once
@@ -17,8 +19,10 @@ under PyTorch's default TF32 switches before they are set for the plain
 versions: served results are full float32 whatever the switches say. Each
 kernel's time stands beside its bound on the pipe it uses (split TF32 on the
 tensor cores), the older fp32-FMA bound, and the time of ``torch.matmul`` on
-the tap GEMM alone (a yardstick the port never calls); K3's beside its
-plain version, the stock modules, and a batch-1 push through each. Phase 7 trains: three
+the tap GEMM alone (a yardstick the port never calls); K3's and K4's beside
+their plain versions and the stock modules, K4's beside its roofline and
+its split-TF32 bound on ``mma.sync``, and a batch-1 TARGCN push (p50, p99)
+through the kernels and through the stock modules. Phase 7 trains: three
 float32 steps of the full-width flagship on the card under the default TF32
 switches against the same steps on the CPU; ``run_fold`` on synthetic data
 for the flagship and for ``stgcan``, whose best checkpoints are then served
@@ -29,13 +33,16 @@ dense graph conv off), printed as a ``{"train": [...]}`` line before the
 kernel line. Phase 8 takes the Gen-3 and Gen-1 families (``musa``,
 ``musa_ablation``, ``targcn``, the two skeleton transformers, the
 transformer ensemble), which run as plain modules (``targcn``'s temporal
-transformer at its preset's width through kernel K3, one launch a forward):
+transformer at its preset's width through kernel K3, one launch a forward,
+and its graph-GRU layers through K4, one launch each):
 the four reference fixtures served under PyTorch's default TF32 switches
 (8a); each family at its preset's full width, batch 128, card against CPU,
 with windows/s and push latency (8b); k-copies inference (``num_copies=2``)
 through the kernels at T=15, held against the plain versions (8c); ``run_fold`` of
-``musa_harup`` and ``targcn_harup`` served from their best checkpoints, and
-train windows/s of three families (8d); printed as a ``{"families": [...]}``
+``musa_harup`` and ``targcn_harup`` served from their best checkpoints (TARGCN's
+K4 layers held on the trained weights over the frames before its float32 and
+float64 forwards part, with a plain-TF32 control), and train windows/s of
+three families (8d); printed as a ``{"families": [...]}``
 line. Phase 9 runs the cross-validation path through the trainer's and the
 server's CLIs in-process at full preset width: ``--cv`` of the flagship (3
 folds x 2 epochs) and of ``stgcan`` (2 x 1) on 1,024 synthetic windows,
@@ -117,7 +124,14 @@ from fall_multimodal_tpu_torch.ops.stgcan_block import (
     stgcan_block_emulated,
     stgcan_block_reference,
 )
-from fall_multimodal_tpu_torch.models.targcn import TemporalTransformer
+from fall_multimodal_tpu_torch.models.targcn import GraphGRUCell, TemporalTransformer
+from fall_multimodal_tpu_torch.ops.graph_gru import (
+    FusedGraphGRU,
+    fused_graph_gru,
+    generate,
+    graph_gru_reference,
+    pack_graph_gru,
+)
 from fall_multimodal_tpu_torch.ops.temporal_transformer import (
     fused_temporal_transformer,
     pack_temporal_transformer,
@@ -151,6 +165,7 @@ from fall_multimodal_tpu_torch.train.cv_vmapped import (
 from fall_multimodal_tpu_torch.train.loop import FusedEpochs
 from fall_multimodal_tpu_torch.utils.checkpoint import Checkpointer
 from fall_multimodal_tpu_torch.utils.device import full_float32
+from port_bench.reference.targcn import recurrence_cost
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "reference_gstcan3.npz")
@@ -160,12 +175,14 @@ KERNEL_TOL = 1e-4        # split-TF32 kernel vs fp32 plain version, other summat
 MODEL_TOL = 1e-4
 SHORT_PLAN = ((64, 1, False), (128, 2, True))
 K3_BATCH = 8192       # targcn-serve-b8192's batch: 114,688 sequences over every SM
+K4_BATCH = 8192       # the same cell's batch: 512 CTAs of 16 windows
 # H100 SXM published peaks (NVIDIA data sheet): fp32 outside the tensor
 # cores, dense TF32 in them, HBM3 bandwidth. The kernels' GEMMs run in split
 # TF32, three tensor-core products for one fp32 product; the adjacency
 # contraction, the SE gate and the epilogues run as fp32 FMAs.
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+MMA_SYNC_TF32_FLOPS = 310e12   # mma.sync's TF32 rate on an H100 (PERF.md §6, K3)
 TF32_PRODUCTS = 3
 PEAK_BYTES = 3.35e12
 TRAIN_LOSS_RTOL = 1e-4   # card (split summation, cuDNN) vs CPU float32 train loss
@@ -382,19 +399,138 @@ def k3_timings(k3):
                        split_tf32_bound_ms=split_ms, fma_bound_ms=fma_ms, gflop=flops / 1e9)
         else:
             row.update(ms_batch_1=k_ms, plain_ms_batch_1=p_ms, stock_ms_batch_1=s_ms)
-    k3_pred = k3["pred"].with_batch_size(1)
-    stock = copy.copy(k3_pred)
+    return row
+
+
+def graph_gru_cost(n, t, v, dim_in):
+    """(flops, bytes) of one TARGCN graph-GRU layer (K4) on n windows of t
+    frames over v nodes at the published widths:
+    ``port_bench/reference/targcn.py:recurrence_cost`` of a one-layer
+    recurrence on ``dim_in`` input channels. The two layers' counts sum to
+    the model's, but for the bytes of layer 1 reading layer 0's states and
+    of the node embeddings read twice."""
+    model = {"num_joints": v, "seq_len": t, "in_channels": dim_in, "num_classes": 0,
+             "kwargs": {"num_layers": 1}}
+    return recurrence_cost(model, n)
+
+
+def k4_checks(dev):
+    """Phase 2d: kernel K4 on the card against its packed plain version and
+    against the stock ``GraphGRUCell.scan``, the whole (B, T, V, 64) output
+    within KERNEL_TOL: both layers of the seeded ``targcn_harup`` model (V
+    14, inputs 3 and 64, T 30) at batch K4_BATCH, 1 and 8,191 (the last CTA
+    a window short), and drawn cells (16 inputs over 5 nodes, T 7; 8 inputs
+    over 16 nodes, T 3) at batch 37; every call one launch. Then a batch-128
+    TARGCN ``Predictor`` forward: two K4 launches and one K3, its logits
+    against the model's stock forward on the card. Returns what the timings
+    and the kernel line need."""
+    cfg = load_config(preset_path("targcn_harup"))
+    model = seeded_model(cfg, SEED).to(dev).eval()
+    emb = model.node_embeddings.detach()
+    cases = [(n, cell, emb, 30) for cell in model.encoder.dcrnn_cells for n in (K4_BATCH, 1, 8191)]
+    for dim_in, v, t in ((16, 5, 7), (8, 16, 3)):
+        torch.manual_seed(dim_in)
+        cell = GraphGRUCell(dim_in, 64, 8, v)
+        with torch.no_grad():
+            for prm in cell.parameters():
+                prm.copy_(0.2 * torch.randn_like(prm))
+        cases.append((37, cell.to(dev).eval(), 0.5 * torch.randn(v, 8).to(dev), t))
+    max_err = 0.0
+    fused_graph_gru.launches = 0
+    for n, cell, e, t in cases:
+        v, dim_in = cell.gate.col_weight.shape[0], cell.gate.weights_pool.shape[1] - 64
+        x = torch.randn((n, t, v, dim_in), generator=torch.Generator().manual_seed(n + t)).to(dev)
+        packed = pack_graph_gru(cell)
+        with torch.no_grad(), full_float32():
+            gen = generate(packed, e)
+            out = fused_graph_gru(x, packed, gen)
+            torch.cuda.synchronize()
+            err = (out - graph_gru_reference(x, packed, gen)).abs().max().item()
+            err_stock = (out - cell.scan(x, e)).abs().max().item()
+        ok = bool(torch.isfinite(out).all()) and err <= KERNEL_TOL and err_stock <= KERNEL_TOL
+        log(f"check graph_gru inputs={dim_in} V={v} T={t} N={n:4d}: max_abs_err={err:.3e} vs "
+            f"the plain version, {err_stock:.3e} vs the stock scan ({'ok' if ok else 'FAIL'})")
+        if not ok:
+            raise AssertionError(f"graph_gru disagrees at inputs={dim_in}, V={v}, T={t}, "
+                                 f"N={n}: {err}, {err_stock} against the stock scan")
+        max_err = max(max_err, err, err_stock)
+    if fused_graph_gru.launches != len(cases):
+        raise AssertionError(f"{len(cases)} K4 calls counted {fused_graph_gru.launches} launches")
+    pred = Predictor(cfg, {k: v.cpu() for k, v in model.state_dict().items()},
+                     batch_size=BATCH, device=dev)
+    skel = np.random.default_rng(SEED).normal(size=(BATCH, 30, 14, 3)).astype(np.float32)
+    fused_graph_gru.launches = fused_temporal_transformer.launches = 0
+    got = pred.predict_logits(skel)
+    launches = fused_graph_gru.launches, fused_temporal_transformer.launches
+    with torch.no_grad(), full_float32():
+        want = pred.model(torch.from_numpy(skel).to(dev)).cpu().numpy()
+    err = float(np.abs(got - want).max())
+    log(f"targcn Predictor(batch {BATCH}) forward launched graph_gru {launches[0]} and "
+        f"temporal_transformer {launches[1]} time(s); logits vs the model's stock forward on "
+        f"the card max_abs_err={err:.3e}")
+    if launches != (2, 1) or not err <= MODEL_TOL:
+        raise AssertionError(f"targcn Predictor: {launches} K4, K3 launches a forward, logits "
+                             f"off the stock forward by {err}")
+    return {"model": model, "pred": pred, "launches": launches[0], "max_abs_err": max_err}
+
+
+def k4_timings(k4):
+    """Phase 6 for K4: CUDA-event ms of each layer at batch K4_BATCH and 1:
+    the kernel alone, the layer as served (``FusedGraphGRU.scan``: the
+    weight generation and the launch), its plain version and the stock
+    ``scan``, beside the roofline of ``recurrence_cost`` (FLOPs at the TF32
+    tensor-core peak, one product a multiply-add, or bytes at HBM3
+    bandwidth) and the split-TF32 bound on ``mma.sync`` (three products at
+    MMA_SYNC_TF32_FLOPS); then a batch-1 streaming push through the kernels
+    (K4 twice, K3) and through the stock modules, eight rounds of 25 in
+    turns, p50 and p99. Returns the kernel line's entry."""
+    model = k4["model"]
+    emb = model.node_embeddings.detach()
+    row = {"layers": []}
+    for layer, cell in enumerate(model.encoder.dcrnn_cells):
+        dim_in = cell.gate.weights_pool.shape[1] - 64
+        fused = FusedGraphGRU(cell)
+        entry = {"layer": layer, "inputs": dim_in}
+        for n in (K4_BATCH, 1):
+            x = torch.randn((n, 30, 14, dim_in), device=emb.device)
+            with torch.no_grad(), full_float32():
+                gen = generate(fused.packed, emb)
+                k_ms = cuda_ms(lambda: fused_graph_gru(x, fused.packed, gen))
+                served_ms = cuda_ms(lambda: fused.scan(x, emb))
+                p_ms = cuda_ms(lambda: graph_gru_reference(x, fused.packed, gen), iters=3,
+                               warmup=1)
+                s_ms = cuda_ms(lambda: cell.scan(x, emb), iters=3, warmup=1)
+            flops, nbytes = graph_gru_cost(n, 30, 14, dim_in)
+            roof_ms = max(flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+            split_ms = TF32_PRODUCTS * flops / MMA_SYNC_TF32_FLOPS * 1e3
+            log(f"time graph_gru layer {layer} (inputs {dim_in}) N={n}: kernel {k_ms:.4f} ms "
+                f"(1 launch), as served {served_ms:.4f} ms, plain {p_ms:.4f} ms, stock scan "
+                f"{s_ms:.4f} ms; roofline {roof_ms:.4f} ms ({flops / 1e9:.2f} GFLOP at 495 "
+                f"TFLOP/s, {nbytes / 1e6:.1f} MB), {100 * roof_ms / served_ms:.2f}% of it as "
+                f"served; split TF32 on mma.sync {split_ms:.4f} ms; "
+                f"{flops / served_ms / 1e9:.1f} TFLOP/s")
+            key = "" if n == K4_BATCH else "_batch_1"
+            entry.update({f"ms{key}": k_ms, f"served_ms{key}": served_ms,
+                          f"plain_ms{key}": p_ms, f"stock_ms{key}": s_ms,
+                          f"roofline_ms{key}": roof_ms, f"split_tf32_bound_ms{key}": split_ms,
+                          f"gflop{key}": flops / 1e9})
+        row["layers"].append(entry)
+    served = k4["pred"].with_batch_size(1)
+    stock = copy.copy(served)
     stock.served = stock.model                   # the same model through its own modules
-    p50 = {"k3": [], "stock": []}
+    lat = {"kernels": [], "stock": []}
     for _ in range(4):
-        for label, p in (("k3", k3_pred), ("stock", stock), ("stock", stock), ("k3", k3_pred)):
-            lat = measure_push_latency(StreamingClassifier(p, seq_len=packed.t), n_pushes=25,
-                                       warmup=5)
-            p50[label].append(lat["p50_ms"])
-    for label, vals in p50.items():
-        log(f"targcn push (batch 1) through {label}: p50 of 8 rounds of 25 pushes in turns: "
-            f"median {np.median(vals):.3f} ms (" + ", ".join(f"{v:.3f}" for v in vals) + ")")
-    row["push_p50_ms"] = {label: float(np.median(vals)) for label, vals in p50.items()}
+        for label, p in (("kernels", served), ("stock", stock), ("stock", stock),
+                         ("kernels", served)):
+            lat[label].append(measure_push_latency(StreamingClassifier(p, seq_len=30),
+                                                   n_pushes=25, warmup=5))
+    for label, runs in lat.items():
+        p50 = [r["p50_ms"] for r in runs]
+        p99 = [r["p99_ms"] for r in runs]
+        log(f"targcn push (batch 1) through {label}: 8 rounds of 25 pushes in turns: p50 median "
+            f"{np.median(p50):.3f} ms (" + ", ".join(f"{v:.3f}" for v in p50) + f"), p99 median "
+            f"{np.median(p99):.3f} ms")
+        row[f"push_{label}_ms"] = {"p50": float(np.median(p50)), "p99": float(np.median(p99))}
     return row
 
 
@@ -496,11 +632,15 @@ def train_steps_card_vs_cpu(cfg, sd, dev, defaults):
     return out
 
 
-def train_then_serve(preset, epochs, dev, k1_per_forward, k2_per_forward):
+def train_then_serve(preset, epochs, dev, k1_per_forward, k2_per_forward, k4_per_forward=0):
     """Phases 7b and 8d: ``run_fold`` on 2,048 synthetic windows at full width, then
     the best checkpoint served on the card through ``Predictor``: launches
-    counted over one batch-128 forward, logits held against the trainer's
-    eval forward (plain modules, full float32) at MODEL_TOL."""
+    (K1, K2, K4) counted over one batch-128 forward, logits held against the
+    trainer's eval forward (plain modules, full float32) at MODEL_TOL. A
+    model served through K4 (TARGCN) is held layer by layer instead
+    (:func:`k4_trained_check`): after one epoch its float32 forward parts
+    from its float64 forward within a few frames, so no float32 kernel can
+    hold its logits to MODEL_TOL."""
     cfg = load_config(preset_path(preset))
     cfg = cfg.replace(train=dataclasses.replace(cfg.train, epochs=epochs))
     d = cfg.data
@@ -528,23 +668,77 @@ def train_then_serve(preset, epochs, dev, k1_per_forward, k2_per_forward):
     pred = Predictor.from_torch_checkpoint(cfg, best, batch_size=BATCH, device=dev)
     skel = data.features[:BATCH]
     sens = data.sensors[:BATCH]
-    fused_stgcan_block.launches = fused_backbone_forward.launches = 0
+    fused_stgcan_block.launches = fused_backbone_forward.launches = fused_graph_gru.launches = 0
     logits = pred.predict_logits(skel, sens if pred.requires_sensor else None)
-    launches = (fused_stgcan_block.launches, fused_backbone_forward.launches)
+    launches = (fused_stgcan_block.launches, fused_backbone_forward.launches,
+                fused_graph_gru.launches)
     model = result.best_state.model.eval()
     with torch.no_grad(), full_float32():
         ref = model(torch.from_numpy(skel).to(dev), torch.from_numpy(sens).to(dev)).cpu().numpy()
     err = float(np.abs(logits - ref).max())
     log(f"train: {preset} best checkpoint served: stgcan_block {launches[0]}, "
-        f"fused_backbone {launches[1]} launches per batch-{BATCH} forward; logits vs the "
-        f"trainer's eval forward max_abs_err={err:.3e} (|logits| max {np.abs(ref).max():.3f})")
-    if launches != (k1_per_forward, k2_per_forward) or not err <= MODEL_TOL:
+        f"fused_backbone {launches[1]}, graph_gru {launches[2]} launches per batch-{BATCH} "
+        f"forward; logits vs the trainer's eval forward max_abs_err={err:.3e} (|logits| max "
+        f"{np.abs(ref).max():.3f})")
+    layers = k4_trained_check(pred, model, skel) if k4_per_forward else None
+    if launches != (k1_per_forward, k2_per_forward, k4_per_forward) or (
+            layers is None and not err <= MODEL_TOL):
         raise AssertionError(f"{preset}: trained weights served through {launches} launches, "
                              f"off by {err}")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     return {"preset": preset, "epochs": epochs, "fit_s": fit_s, "train_loss": h["train_loss"],
             "train_acc": h["train_acc"], "val_acc": h["val_acc"],
-            "test_acc": result.test.accuracy, "launches": list(launches), "max_abs_err": err}
+            "test_acc": result.test.accuracy, "launches": list(launches), "max_abs_err": err,
+            "k4_layers": layers}
+
+
+def k4_trained_check(pred, model, skel):
+    """Phase 8d for a model served through K4, in place of its logits: each
+    K4 layer of the served tree on the trained weights, over the leading
+    frames in which the layer's stock float32 scan lies within KERNEL_TOL of
+    its float64 scan (on the layer's input in the trainer's float32 forward),
+    held at KERNEL_TOL against that float64 scan, the packed plain version
+    and the stock float32 scan. Past those frames the float32 forwards
+    themselves part (TARGCN after one epoch: 8.8e-6 at frame 0, 7.3e-4 at
+    frame 1, 2.0 by frame 4 on the CPU), and from the first frame on they
+    test the trained weights as served. Control: the packed plain version
+    with cuBLAS's TF32 switch on must lie beyond KERNEL_TOL on the same
+    frames, or the check could not tell a kernel in plain TF32. Returns per
+    layer the frames, the errors and the float32 scan's gap by frame."""
+    e = model.node_embeddings.detach()
+    x = torch.from_numpy(skel).to(e.device)
+    rows = []
+    with torch.no_grad(), full_float32():
+        for layer, (cell, fused) in enumerate(zip(model.encoder.dcrnn_cells,
+                                                  pred.served.encoder.dcrnn_cells)):
+            h32 = cell.scan(x, e)
+            h64 = copy.deepcopy(cell).double().scan(x.double(), e.double())
+            gaps = (h32.double() - h64).abs().amax(dim=(0, 2, 3)).tolist()
+            frames = next((t for t, g in enumerate(gaps) if g > KERNEL_TOL), len(gaps))
+            xs = x[:, :frames].contiguous()
+            want = h64[:, :frames]
+            gen = generate(fused.packed, e)
+            plain = graph_gru_reference(xs, fused.packed, gen)
+            torch.backends.cuda.matmul.allow_tf32 = True
+            tf32 = graph_gru_reference(xs, fused.packed, gen)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            got = fused.scan(xs, e)
+            errs = {name: (got.double() - w).abs().max().item() for name, w in
+                    (("float64", want), ("plain", plain.double()), ("stock", h32[:, :frames]))}
+            control = (tf32.double() - want).abs().max().item()
+            ok = frames >= 1 and max(errs.values()) <= KERNEL_TOL < control
+            log(f"check graph_gru trained layer {layer}: stock float32 vs float64 by frame "
+                + ", ".join(f"{g:.1e}" for g in gaps[:6]) + f" ...; frames 0-{frames - 1}: "
+                f"max_abs_err {errs['float64']:.3e} vs float64, {errs['plain']:.3e} vs the "
+                f"plain version, {errs['stock']:.3e} vs the stock scan; plain TF32 control "
+                f"{control:.3e} vs float64 ({'ok' if ok else 'FAIL'})")
+            if not ok:
+                raise AssertionError(f"trained graph_gru layer {layer} over {frames} frames: "
+                                     f"{errs}, plain TF32 control {control}")
+            rows.append({"layer": layer, "frames": frames, **errs, "tf32_control": control,
+                         "float32_gap_by_frame": gaps[:6]})
+            x = h32
+    return rows
 
 
 def device_activity(fn, n):
@@ -691,8 +885,8 @@ def serve_families(dev, rng):
     """Phase 8b: each family at its preset's full width, seeded weights,
     batch 128 on the card against the same Predictor on the CPU; no K1 or
     K2 launch (plain modules; ``targcn``'s temporal transformer one K3
-    launch a forward); device ms per forward, windows/s host to host, push
-    p50/p99 at batch 1."""
+    launch a forward and its graph-GRU layers one K4 launch each); device ms
+    per forward, windows/s host to host, push p50/p99 at batch 1."""
     rows = []
     for name, preset in FAMILIES:
         cfg = family_config(name, preset)
@@ -704,13 +898,14 @@ def serve_families(dev, rng):
         pred = Predictor(cfg, sd, batch_size=BATCH, device=dev)
         sens = sens if pred.requires_sensor else None
         fused_stgcan_block.launches = fused_backbone_forward.launches = 0
-        fused_temporal_transformer.launches = 0
+        fused_temporal_transformer.launches = fused_graph_gru.launches = 0
         logits = pred.predict_logits(skel, sens)
         launches = (fused_stgcan_block.launches, fused_backbone_forward.launches,
-                    fused_temporal_transformer.launches)
+                    fused_temporal_transformer.launches, fused_graph_gru.launches)
         cpu = Predictor(cfg, sd, batch_size=BATCH, device="cpu").predict_logits(skel, sens)
         err = float(np.abs(logits - cpu).max())
-        if launches != (0, 0, int(name == "targcn")) or not err <= MODEL_TOL \
+        targcn = int(name == "targcn")
+        if launches != (0, 0, targcn, 2 * targcn) or not err <= MODEL_TOL \
                 or not np.isfinite(logits).all() or np.ptp(cpu, axis=0).min() <= 1e-3:
             raise AssertionError(f"{name}: card logits off the CPU's by {err} "
                                  f"(launches {launches})")
@@ -807,7 +1002,8 @@ def train_families(dev, card):
     trainer's eval forward; train windows/s at the preset's batch for
     ``musa``, ``targcn`` and ``skeleton_transformer``."""
     served = [train_then_serve("musa_harup", 2, dev, k1_per_forward=0, k2_per_forward=0),
-              train_then_serve("targcn_harup", 1, dev, k1_per_forward=0, k2_per_forward=0)]
+              train_then_serve("targcn_harup", 1, dev, k1_per_forward=0, k2_per_forward=0,
+                               k4_per_forward=2)]
     data = to_device(make_synthetic(n_windows=4096, num_classes=11, sensor_dim=15, seed=SEED),
                      dev)
     rows = []
@@ -1696,6 +1892,9 @@ def main() -> int:
     # ---- phase 2c: K3, TARGCN's temporal transformer, at the cell's batch ----
     k3 = k3_checks(dev)
 
+    # ---- phase 2d: K4, TARGCN's graph-GRU layers, at the cell's batch -------
+    k4 = k4_checks(dev)
+
     # ---- phase 3: the reference checkpoint served on the card --------------
     sd_ref = load_state_dict_file(FIXTURE)
     g = np.load(FIXTURE)
@@ -1884,6 +2083,7 @@ def main() -> int:
         f"(p50 - batch-1 kernel): {lat_s['p50_ms'] - bb1_ms:.3f} ms, before the constants "
         f"were packed once: {HOST_SHARE_BEFORE_MS:.3f} ms")
     k3_row = k3_timings(k3)
+    k4_row = k4_timings(k4)
 
     # ---- phase 7: training at full width, then the trained weights served ----
     train_7a = train_steps_card_vs_cpu(cfg, sd_random, dev, defaults)
@@ -1956,6 +2156,16 @@ def main() -> int:
         "launches": k3["launches"],
         "max_abs_err": k3["max_abs_err"],
         **k3_row,
+        "bound_pipe": "TF32 tensor cores, one product a multiply-add",
+        "library_ms": None,
+    }, {
+        "name": "graph_gru",
+        "route": "cuda",
+        "source": "fall_multimodal_tpu_torch/ops/csrc/graph_gru.cu",
+        "replaces": None,
+        "launches": k4["launches"],
+        "max_abs_err": k4["max_abs_err"],
+        **k4_row,
         "bound_pipe": "TF32 tensor cores, one product a multiply-add",
         "library_ms": None,
     }]}))

@@ -24,7 +24,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_HERE, "_build")
 CSRC_DIR = os.path.join(_HERE, "csrc")
 SOURCES = {name: os.path.join(CSRC_DIR, f"{name}.cu")
-           for name in ("stgcan_block", "fused_backbone", "temporal_transformer")}
+           for name in ("stgcan_block", "fused_backbone", "temporal_transformer", "graph_gru")}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-I", CSRC_DIR)
 

@@ -6,7 +6,8 @@ Counterpart of ``fall_multimodal_tpu/serve.py``:
   submodule a kernel computes is swapped for that kernel's module by type
   (:data:`KERNEL_RULES`: a headed STGCAN backbone to K2 in one launch, a
   headless one to K1 a block, a ``TemporalTransformer`` the kernel takes to
-  K3); every other module stays a plain PyTorch module;
+  K3, a ``GraphGRUCell`` the kernel takes to K4 a layer); every other module
+  stays a plain PyTorch module;
 * :class:`Predictor` — loads weights into the model of any registered
   family and serves it through :func:`with_kernels`; pads ragged requests
   to ``batch_size`` and chunks larger ones; with ``num_copies`` > 1 it
@@ -50,13 +51,10 @@ import torch.nn as nn
 from fall_multimodal_tpu_torch.configs import Config
 from fall_multimodal_tpu_torch.interop import load_into, load_state_dict_file
 from fall_multimodal_tpu_torch.models import TARGCN, STGCANBackbone, build_model, uses_sensor
-from fall_multimodal_tpu_torch.models.targcn import TemporalTransformer
+from fall_multimodal_tpu_torch.models.targcn import GraphGRUCell, TemporalTransformer
+from fall_multimodal_tpu_torch.ops import graph_gru, temporal_transformer
 from fall_multimodal_tpu_torch.ops.fused_backbone import FusedBackbone
 from fall_multimodal_tpu_torch.ops.fused_backbone_v2 import WholeBackbone
-from fall_multimodal_tpu_torch.ops.temporal_transformer import (
-    FusedTemporalTransformer,
-    kernel_takes,
-)
 from fall_multimodal_tpu_torch.train.loop import k_copies_logits
 from fall_multimodal_tpu_torch.utils.device import full_float32, resolve_device, synchronize
 from fall_multimodal_tpu_torch.utils.profiling import span
@@ -66,7 +64,9 @@ from fall_multimodal_tpu_torch.utils.profiling import span
 KERNEL_RULES = (
     (STGCANBackbone, lambda m: m.cls is not None, WholeBackbone),          # K2
     (STGCANBackbone, lambda m: m.cls is None, FusedBackbone),              # K1 a block
-    (TemporalTransformer, kernel_takes, FusedTemporalTransformer),         # K3
+    (TemporalTransformer, temporal_transformer.kernel_takes,
+     temporal_transformer.FusedTemporalTransformer),                       # K3
+    (GraphGRUCell, graph_gru.kernel_takes, graph_gru.FusedGraphGRU),       # K4 a layer
 )
 
 

@@ -731,3 +731,115 @@ def test_temporal_transformer_kernel_refuses_what_it_does_not_take(cuda_device):
         fused_temporal_transformer(torch.zeros((2, 30, 14, 64), device=cuda_device),
                                    packed._replace(n_layers=3))
     assert fused_temporal_transformer.launches == launches
+
+
+# ------------------------------------------- K4: TARGCN's graph-GRU layers
+
+def _logit_gap(got, want):
+    """The benchmark's ``logit_gap``: the worst window's largest logit gap
+    over max(its largest reference logit, the median of those)."""
+    scale = np.abs(want).max(axis=1)
+    return float((np.abs(got - want).max(axis=1) / np.maximum(scale, np.median(scale))).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layer", [0, 1])
+@pytest.mark.parametrize("n", [8192, 1, 8191])
+def test_graph_gru_kernel_matches_its_plain_version(cuda_device, no_tf32, layer,  # noqa: F811
+                                                    n):
+    """K4 against its packed plain version and the stock ``GraphGRUCell.scan``
+    in full fp32, both layers of the preset (inputs 3 and 64, V 14, T 30;
+    seeded weights, inputs N(0, 1)): batch 8,192 (512 CTAs of 16 windows),
+    1, and 8,191 (the last CTA a window short); one launch a call."""
+    from fall_multimodal_tpu_torch.ops.graph_gru import (
+        fused_graph_gru,
+        generate,
+        graph_gru_reference,
+        pack_graph_gru,
+    )
+
+    model = seeded_model(load_config(preset_path("targcn_harup"))).to(cuda_device).eval()
+    cell, emb = model.encoder.dcrnn_cells[layer], model.node_embeddings.detach()
+    dim_in = 3 if layer == 0 else 64
+    x = torch.randn((n, 30, 14, dim_in), generator=torch.Generator().manual_seed(n)).to(
+        cuda_device)
+    packed = pack_graph_gru(cell)
+    gen = generate(packed, emb)
+    launches = fused_graph_gru.launches
+    out = fused_graph_gru(x, packed, gen)
+    torch.cuda.synchronize()
+    assert fused_graph_gru.launches == launches + 1
+    assert torch.isfinite(out).all()
+    with torch.no_grad():
+        torch.testing.assert_close(out, graph_gru_reference(x, packed, gen), rtol=0, atol=TOL)
+        torch.testing.assert_close(out, cell.scan(x, emb), rtol=0, atol=TOL)
+
+
+@pytest.mark.cuda
+def test_graph_gru_kernel_launches_nothing_at_batch_0(cuda_device):  # noqa: F811
+    """No window, no launch: an empty (0, T, V, 64) output, and the launch
+    counter unchanged."""
+    from fall_multimodal_tpu_torch.ops.graph_gru import (
+        fused_graph_gru,
+        generate,
+        pack_graph_gru,
+    )
+
+    model = seeded_model(load_config(preset_path("targcn_harup"))).to(cuda_device).eval()
+    packed = pack_graph_gru(model.encoder.dcrnn_cells[0])
+    gen = generate(packed, model.node_embeddings.detach())
+    launches = fused_graph_gru.launches
+    out = fused_graph_gru(torch.zeros((0, 30, 14, 3), device=cuda_device), packed, gen)
+    assert out.shape == (0, 30, 14, 64) and out.device.type == "cuda"
+    assert fused_graph_gru.launches == launches
+
+
+@pytest.mark.cuda
+def test_a_targcn_predictor_runs_each_graph_gru_layer_in_one_launch(cuda_device):  # noqa: F811
+    """A TARGCN ``Predictor`` on the card, under PyTorch's default TF32 flags,
+    at the benchmark cell's batch of 8,192: two K4 launches and one K3 a
+    forward, and the logits' ``logit_gap`` against the model's stock forward
+    under ``full_float32`` within the cell's 1e-5."""
+    from fall_multimodal_tpu_torch.ops.graph_gru import FusedGraphGRU, fused_graph_gru
+    from fall_multimodal_tpu_torch.ops.temporal_transformer import fused_temporal_transformer
+    from fall_multimodal_tpu_torch.utils.device import full_float32
+
+    cfg = load_config(preset_path("targcn_harup"))
+    pred = Predictor(cfg, seeded_model(cfg).state_dict(), batch_size=8192, device=cuda_device)
+    assert all(isinstance(c, FusedGraphGRU) for c in pred.served.encoder.dcrnn_cells)
+    skel = np.random.default_rng(6).normal(size=(8192, 30, 14, 3)).astype(np.float32)
+    k4, k3 = fused_graph_gru.launches, fused_temporal_transformer.launches
+    got = pred.predict_logits(skel)
+    assert (fused_graph_gru.launches - k4, fused_temporal_transformer.launches - k3) == (2, 1)
+    with torch.no_grad(), full_float32():
+        want = pred.model(torch.from_numpy(skel).to(cuda_device)).cpu().numpy()
+    assert _logit_gap(got, want) < 1e-5
+
+
+@pytest.mark.cuda
+def test_graph_gru_kernel_refuses_what_it_does_not_take(cuda_device):  # noqa: F811
+    """A non-contiguous or float64 input, or one of another width, raises in
+    the wrapper before any launch; a launch the kernel refuses (17 nodes)
+    raises there with the CUDA error, and counts no launch."""
+    from fall_multimodal_tpu_torch.ops.graph_gru import (
+        fused_graph_gru,
+        generate,
+        pack_graph_gru,
+    )
+
+    model = seeded_model(load_config(preset_path("targcn_harup"))).to(cuda_device).eval()
+    packed = pack_graph_gru(model.encoder.dcrnn_cells[1])
+    gen = generate(packed, model.node_embeddings.detach())
+    launches = fused_graph_gru.launches
+    with pytest.raises(ValueError, match="contiguous float32"):
+        fused_graph_gru(torch.zeros((2, 14, 30, 64), device=cuda_device).transpose(1, 2),
+                        packed, gen)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        fused_graph_gru(torch.zeros((2, 30, 14, 64), dtype=torch.float64, device=cuda_device),
+                        packed, gen)
+    with pytest.raises(ValueError, match="takes"):
+        fused_graph_gru(torch.zeros((2, 30, 14, 32), device=cuda_device), packed, gen)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fused_graph_gru(torch.zeros((2, 30, 17, 64), device=cuda_device),
+                        packed._replace(nodes=17), gen)
+    assert fused_graph_gru.launches == launches

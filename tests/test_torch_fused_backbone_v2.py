@@ -156,18 +156,20 @@ def csrc_copy(tmp_path, monkeypatch):
 
 
 def test_every_kernel_source_is_listed_and_on_the_include_path():
-    assert set(build.SOURCES) == {"stgcan_block", "fused_backbone", "temporal_transformer"}
+    assert set(build.SOURCES) == {"stgcan_block", "fused_backbone", "temporal_transformer",
+                                  "graph_gru"}
     for name, path in build.SOURCES.items():
         assert os.path.isfile(path)
-        with open(path) as fh:   # K3 shares no device code with K1 and K2
-            assert ('#include "stgcan_phases.cuh"' in fh.read()) == (name != "temporal_transformer")
+        with open(path) as fh:   # K3 and K4 share no device code with K1 and K2
+            assert ('#include "stgcan_phases.cuh"' in fh.read()) == (
+                name in ("stgcan_block", "fused_backbone"))
     flags = list(build.NVCC_FLAGS)
     assert flags[flags.index("-I") + 1] == build.CSRC_DIR
     assert "arch=compute_90a,code=sm_90a" in flags
 
 
 @pytest.mark.parametrize("edited", ["stgcan_phases.cuh", "stgcan_block.cu", "fused_backbone.cu",
-                                    "temporal_transformer.cu"])
+                                    "temporal_transformer.cu", "graph_gru.cu"])
 def test_library_hash_covers_shared_headers(csrc_copy, edited):
     before = {name: build.library_path(name) for name in build.SOURCES}
     assert before == {name: build.library_path(name) for name in build.SOURCES}
