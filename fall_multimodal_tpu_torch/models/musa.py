@@ -22,7 +22,18 @@ Semantics kept from the reference:
 * DropBlockT shuffles time with one permutation shared by the batch.
 
 Every draw (DropGraph's Bernoulli seeds and permutation, the head's dropout)
-comes from the ``generator`` a train-mode forward is given.
+comes from the ``generator`` a train-mode forward is given. DropGraph
+multiplies a branch by two factors made from its ``|x|``; on the card each
+branch's factors replay one captured CUDA graph (:class:`_GraphedFactors`)
+that draws from that generator what the eager ops draw.
+
+Under a profiler (:func:`~fall_multimodal_tpu_torch.utils.profiling.span`)
+a forward records ``musa.graph`` around a graph conv's main and residual
+branches, ``musa.temporal`` around a separable block's branches and around
+the ``SepTCN`` tail, and ``musa.dropgraph`` around the DropGraph of a
+block's branches where it draws; none of the three nests in another.
+``_DropGraphBlock.draws`` counts the branches DropGraph masks (12 a
+train-mode forward at ``n_stage`` 1, none in eval).
 """
 
 from __future__ import annotations
@@ -43,6 +54,7 @@ from fall_multimodal_tpu_torch.models.layers import (
     register_constant,
     require_generator,
 )
+from fall_multimodal_tpu_torch.utils.profiling import span
 
 
 def _graph_apply(x: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
@@ -70,19 +82,39 @@ def _widen(m: torch.Tensor, block_size: int) -> torch.Tensor:
     return out.clamp(min=0.0)[:, : m.shape[1]]
 
 
+def _ske_factor(absx: torch.Tensor, keep_prob: float, A: torch.Tensor,
+                generator: Optional[torch.Generator]) -> torch.Tensor:
+    """:func:`drop_block_ske`'s mask times its rescale, (n, v), from the
+    branch's ``|x|`` (n, t, v, c)."""
+    n, t, v, c = absx.shape
+    act = absx.mean(dim=(1, 3))                              # (n, v)
+    act = act / act.sum() * act.numel()
+    denom = 1.9 if v == 20 else 1.92                         # reference: 1.92 unless V == 20
+    seed = _bernoulli(act * ((1.0 - keep_prob) / (1.0 + denom)), generator)
+    A2 = (A[0] if A.dim() == 3 else A).detach().to(absx.dtype)
+    mask = 1.0 - ((seed @ A2) > 0.001).to(absx.dtype)        # (n, v)
+    return mask * (mask.numel() / mask.sum().clamp(min=1.0))
+
+
+def _t_factor(absx: torch.Tensor, keep_prob: float, block_size: int,
+              generator: Optional[torch.Generator]) -> torch.Tensor:
+    """:func:`drop_block_t`'s mask times its rescale, (n, t), from the
+    branch's ``|x|`` (n, t, v, c)."""
+    n, t = absx.shape[:2]
+    act = absx.mean(dim=(2, 3))                              # (n, t)
+    act = act / act.sum() * act.numel()
+    m = _bernoulli(act * ((1.0 - keep_prob) / block_size), generator)
+    perm = torch.randperm(t, generator=generator, device=absx.device)
+    mask = 1.0 - _widen(m, block_size)[:, perm]              # (n, t)
+    return mask * (mask.numel() / mask.sum().clamp(min=1.0))
+
+
 def drop_block_ske(x: torch.Tensor, keep_prob: float, A: torch.Tensor,
                    generator: Optional[torch.Generator]) -> torch.Tensor:
     """Graph-structured spatial DropBlock (``musa_model.py:39-73``): Bernoulli
     seeds proportional to each joint's mean activity, spread one hop over the
     adjacency, inverted, rescaled by numel / kept."""
-    n, t, v, c = x.shape
-    act = x.detach().abs().mean(dim=(1, 3))                  # (n, v)
-    act = act / act.sum() * act.numel()
-    denom = 1.9 if v == 20 else 1.92                         # reference: 1.92 unless V == 20
-    seed = _bernoulli(act * ((1.0 - keep_prob) / (1.0 + denom)), generator)
-    A2 = (A[0] if A.dim() == 3 else A).detach().to(x.dtype)
-    mask = 1.0 - ((seed @ A2) > 0.001).to(x.dtype)           # (n, v)
-    return x * mask[:, None, :, None] * (mask.numel() / mask.sum().clamp(min=1.0))
+    return x * _ske_factor(x.detach().abs(), keep_prob, A, generator)[:, None, :, None]
 
 
 def drop_block_t(x: torch.Tensor, keep_prob: float, block_size: int,
@@ -91,18 +123,76 @@ def drop_block_t(x: torch.Tensor, keep_prob: float, block_size: int,
     frame seeds proportional to each frame's activity, widened by a
     ``block_size`` max-pool, then permuted over time (one permutation for
     the batch), inverted, rescaled."""
-    n, t = x.shape[:2]
-    act = x.detach().abs().mean(dim=(2, 3))                  # (n, t)
-    act = act / act.sum() * act.numel()
-    m = _bernoulli(act * ((1.0 - keep_prob) / block_size), generator)
-    perm = torch.randperm(t, generator=generator, device=x.device)
-    mask = 1.0 - _widen(m, block_size)[:, perm]              # (n, t)
-    return x * mask[:, :, None, None] * (mask.numel() / mask.sum().clamp(min=1.0))
+    return x * _t_factor(x.detach().abs(), keep_prob, block_size, generator)[:, :, None, None]
+
+
+def _dropgraph_factors(absx: torch.Tensor, keep_prob: float, block_size: int,
+                       A: torch.Tensor, generator: Optional[torch.Generator]):
+    """DropGraph of one branch as the two factors it multiplies the branch
+    by, from the branch's ``|x|``: :func:`drop_block_ske`'s (n, v), then
+    :func:`drop_block_t`'s (n, t) of what the first leaves, whose ``|.|`` is
+    ``|x|`` times the first factor (a factor is >= 0). ``x * ske * t`` is
+    ``drop_block_t(drop_block_ske(x))`` bit for bit: each factor is 0 or
+    its rescale, and the draws are the same calls in the same order."""
+    ske = _ske_factor(absx, keep_prob, A, generator)
+    return ske, _t_factor(absx * ske[:, None, :, None], keep_prob, block_size, generator)
+
+
+def _graphable(x: torch.Tensor, generator: Optional[torch.Generator]) -> bool:
+    """Whether one branch's factors may run as a captured CUDA graph: a
+    plain card tensor, full precision (no autocast), a generator on its
+    device, and no capture already under way (that one takes the eager ops
+    in)."""
+    return (x.is_cuda and isinstance(generator, torch.Generator)
+            and generator.device.type == "cuda"
+            and generator.device.index in (None, x.device.index)   # None: the current card
+            and not torch._C._functorch.is_functorch_wrapped_tensor(x)
+            and not torch.is_autocast_enabled(x.device.type)
+            and not torch.cuda.is_current_stream_capturing())
+
+
+class _GraphedFactors:
+    """:func:`_dropgraph_factors` of one branch of one block, at one shape,
+    captured once as a CUDA graph: a call writes ``|x|`` into the graph's
+    input and replays its ~40 small kernels in one launch, where the eager
+    ops cost the host a launch each (DropGraph is most of a train step's
+    launches). The generator is registered with the graph, so a replay
+    draws from its current state and advances it as the eager calls would:
+    the same Bernoulli seeds and permutations. The factors are copied out,
+    since the next replay overwrites the graph's outputs."""
+
+    def __init__(self, block: "_DropGraphBlock", x: torch.Tensor,
+                 generator: torch.Generator):
+        self.generator = generator          # held: its id in the key stays its own
+        self.absx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+        args = (block.keep_prob, block.block_size)
+        # warm-up on a side stream with a generator of its own: the lazy
+        # set-up of the ops (cuBLAS, the sort's scratch) stays out of the
+        # capture and the train generator draws nothing here
+        main, side = torch.cuda.current_stream(x.device), torch.cuda.Stream(x.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side), torch.no_grad():
+            torch.abs(x.detach(), out=self.absx)
+            spare = torch.Generator(x.device).manual_seed(0)
+            _dropgraph_factors(self.absx, *args, block.graph(), spare)
+        main.wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        self.graph.register_generator_state(generator)
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"), torch.no_grad():
+            self.ske, self.t = _dropgraph_factors(self.absx, *args, block.graph(), generator)
+
+    def __call__(self, x: torch.Tensor):
+        torch.abs(x.detach(), out=self.absx)
+        self.graph.replay()
+        return self.ske.clone(), self.t.clone()
 
 
 class _DropGraphBlock(nn.Module):
     """What the graph conv and the sep blocks share: the saved adjacency
-    ``A``, the learnable ``edge`` mask, and DropGraph on (main, residual)."""
+    ``A``, the learnable ``edge`` mask, and DropGraph on (main, residual).
+    ``draws`` counts the branches DropGraph has masked, in every block."""
+
+    draws = 0
 
     def __init__(self, act_type: str, keep_prob: float, block_size: int, edge: bool,
                  graph_layout: str, graph_strategy: str):
@@ -117,16 +207,39 @@ class _DropGraphBlock(nn.Module):
     def graph(self) -> torch.Tensor:
         return self.A * self.edge if self.edge is not None else self.A
 
+    def __getstate__(self):
+        # a copy (a state's snapshot, a pickle) captures graphs of its own
+        state = dict(super().__getstate__())
+        state.pop("_graphs", None)
+        return state
+
+    def _factors(self, branch: int, x: torch.Tensor, generator):
+        """The factors of one branch: on the card through that branch's
+        captured graph (:class:`_GraphedFactors`), made at its first call
+        for each shape and each thing it reads; elsewhere the eager ops."""
+        if not _graphable(x, generator):
+            return _dropgraph_factors(x.detach().abs(), self.keep_prob, self.block_size,
+                                      self.graph(), generator)
+        key = (branch, tuple(x.shape), x.dtype, id(generator), self.A.data_ptr(),
+               None if self.edge is None else self.edge.data_ptr(),
+               torch.backends.cuda.matmul.allow_tf32)
+        graphs = self.__dict__.setdefault("_graphs", {})
+        entry = graphs.get(key)
+        if entry is None:
+            entry = graphs[key] = _GraphedFactors(self, x, generator)
+        return entry(x)
+
     def drop(self, generator, *branches):
         """DropGraph on each branch (the main one, then the residual) in
         train mode (``keep_prob < 1``)."""
         if not self.training or self.keep_prob >= 1.0:
             return branches
-        A = self.graph()
-        out = []
-        for z in branches:
-            z = drop_block_ske(z, self.keep_prob, A, generator)
-            out.append(drop_block_t(z, self.keep_prob, self.block_size, generator))
+        _DropGraphBlock.draws += len(branches)
+        with span("musa.dropgraph"):
+            out = []
+            for i, z in enumerate(branches):
+                ske, t = self._factors(i, z, generator)
+                out.append(z * ske[:, None, :, None] * t[:, :, None, None])
         return tuple(out)
 
 
@@ -147,8 +260,9 @@ class MusaSpatialGraphConv(_DropGraphBlock):
                          if in_channels != out_channels else None)
 
     def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
-        res = self.residual(x) if self.residual is not None else x
-        y = self.bn(_graph_apply(self.gcn(x), self.graph()))
+        with span("musa.graph"):
+            res = self.residual(x) if self.residual is not None else x
+            y = self.bn(_graph_apply(self.gcn(x), self.graph()))
         y, res = self.drop(generator, y, res)
         return self.act(y + res)
 
@@ -183,12 +297,14 @@ class SepTemporalBlock(_DropGraphBlock):
                          if residual and stride != 1 else None)
 
     def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
-        y = x if self.expand_conv is None else self.act(self.expand_conv(x))
-        y = self.point_conv(self.act(self.depth_conv(y)))
+        with span("musa.temporal"):
+            y = x if self.expand_conv is None else self.act(self.expand_conv(x))
+            y = self.point_conv(self.act(self.depth_conv(y)))
+            if self.use_residual:
+                res = x if self.residual is None else self.residual(x[:, :: self.stride])
         if not self.use_residual:
             (y,) = self.drop(generator, y)
             return self.act(y)
-        res = x if self.residual is None else self.residual(x[:, :: self.stride])
         y, res = self.drop(generator, y, res)
         return self.act(y + res)
 
@@ -224,7 +340,8 @@ class SepTCN(nn.Module):
         self.sep11 = SepDepthwisePointwise(middle, out_channels, kernel=1)
 
     def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
-        return self.sep11(self.sep31(x)) + self.shortcut(x)
+        with span("musa.temporal"):
+            return self.sep11(self.sep31(x)) + self.shortcut(x)
 
 
 class ClassificationModule(nn.Module):

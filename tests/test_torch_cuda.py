@@ -420,6 +420,64 @@ def test_gen3_family_on_the_card_matches_the_cpu(cuda_device, family):  # noqa: 
 
 
 @pytest.mark.cuda
+def test_musa_dropgraph_graphs_draw_what_the_eager_ops_draw(cuda_device, no_tf32,  # noqa: F811
+                                                           monkeypatch):
+    """On the card each branch's DropGraph factors run as one captured CUDA
+    graph per shape. Train steps of the preset's model through the graphs
+    and through the eager ops, from train generators in one state, give the
+    same logits, gradients and running statistics and leave the generators
+    in the same state, bit for bit (deterministic cuDNN), at batch 64 and
+    37, after the generators are reseeded and after their state is restored;
+    each of the 12 branches holds one graph per shape."""
+    import copy
+
+    from fall_multimodal_tpu_torch.models import musa
+
+    cfg = load_config(preset_path("musa_harup"))
+    torch.manual_seed(0)
+    graphed = seeded_model(cfg).to(cuda_device).train()
+    eager = copy.deepcopy(graphed)
+    gens = [torch.Generator(cuda_device).manual_seed(42) for _ in range(2)]
+    rng = np.random.default_rng(3)
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        saved_state = None
+        for i, batch in enumerate((64, 64, 37, 64, 64)):
+            if i == 2:      # fit reseeds the train generator each epoch
+                saved_state = gens[0].get_state()
+                for gen in gens:
+                    gen.manual_seed(7)
+            if i == 4:      # a resumed run restores it
+                for gen in gens:
+                    gen.set_state(saved_state)
+            x = torch.from_numpy(rng.normal(size=(batch, 30, 14, 3)).astype(np.float32))
+            x = x.to(cuda_device)
+            outs = []
+            for model, gen, graphs in ((graphed, gens[0], True), (eager, gens[1], False)):
+                with monkeypatch.context() as m:
+                    if not graphs:
+                        m.setattr(musa, "_graphable", lambda x, g: False)
+                    logits = model(x, None, generator=gen)
+                    logits.square().sum().backward()
+                outs.append(logits.detach())
+            assert torch.equal(outs[0], outs[1])
+            assert torch.equal(gens[0].get_state(), gens[1].get_state())
+            for (name, a), b in zip(graphed.named_parameters(), eager.parameters()):
+                assert (a.grad is None and b.grad is None) or torch.equal(a.grad, b.grad), name
+                a.grad = b.grad = None
+            for (name, a), b in zip(graphed.named_buffers(), eager.buffers()):
+                assert torch.equal(a, b), name
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    blocks = [m for m in graphed.modules() if isinstance(m, musa._DropGraphBlock)]
+    assert len(blocks) == 6 and all(len(b._graphs) == 4 for b in blocks)
+    assert not any(getattr(b, "_graphs", None) for b in eager.modules()
+                   if isinstance(b, musa._DropGraphBlock))
+    assert not any(hasattr(b, "_graphs") for b in copy.deepcopy(graphed).modules())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("preset,k1,k2", [("gstcan_urfall_3stream", 28, 0),
                                           ("default_urfall", 0, 2)])
 def test_k_copies_runs_the_kernels_at_t15(cuda_device, no_tf32, preset, k1, k2):  # noqa: F811

@@ -139,3 +139,47 @@ def test_train_mode_draws_come_from_the_generator(preset, kwargs):
     assert (first - other).abs().max() > 1e-4
     with pytest.raises(ValueError, match="generator"):
         model(skel, sensor)
+
+
+def _published_dropgraph(x, keep_prob, A, block_size, g):
+    """``drop_block_t(drop_block_ske(x))`` as ``musa_model.py:39-98`` writes
+    it, channel-last: each mask applied, then its rescale."""
+    n, t_, v, c = x.shape
+    act = x.detach().abs().mean(dim=(1, 3))
+    act = act / act.sum() * act.numel()
+    seed = torch.bernoulli((act * ((1.0 - keep_prob) / (1.0 + 1.92))).clamp(0.0, 1.0),
+                           generator=g)
+    mask = 1.0 - ((seed @ A) > 0.001).float()
+    x = x * mask[:, None, :, None] * (mask.numel() / mask.sum().clamp(min=1.0))
+    act = x.detach().abs().mean(dim=(2, 3))
+    act = act / act.sum() * act.numel()
+    m = torch.bernoulli((act * ((1.0 - keep_prob) / block_size)).clamp(0.0, 1.0), generator=g)
+    perm = torch.randperm(t_, generator=g)
+    mask = 1.0 - musa._widen(m, block_size)[:, perm]
+    return x * mask[:, :, None, None] * (mask.numel() / mask.sum().clamp(min=1.0))
+
+
+@pytest.mark.parametrize("frames", [30, 15])
+def test_dropgraph_factors_equal_the_published_composition_bit_for_bit(frames):
+    """A block's DropGraph multiplies each branch by two factors, made from
+    the branch's ``|x|``: the published ske-then-t composition bit for bit,
+    forward and gradient, on the main branch and then the residual, four
+    times over, with the generator left in the same state."""
+    block = musa.SepTemporalBlock(16, 3, 1, act_type="tanh", keep_prob=0.7,
+                                  block_size=41).train()
+    with torch.no_grad():
+        block.edge.mul_(1.0 + 0.2 * torch.rand(block.edge.shape,
+                                               generator=torch.Generator().manual_seed(3)))
+    rng = np.random.default_rng(frames)
+    main, res = (t(rng.normal(size=(6, frames, 14, 16))).requires_grad_() for _ in range(2))
+    g_block, g_pub = torch.Generator().manual_seed(9), torch.Generator().manual_seed(9)
+    for _ in range(4):
+        got = block.drop(g_block, main, res)
+        want = [_published_dropgraph(z, 0.7, block.graph().detach()[0], 41, g_pub)
+                for z in (main, res)]
+        assert torch.equal(g_block.get_state(), g_pub.get_state())
+        for a, b, z in zip(got, want, (main, res)):
+            assert torch.equal(a, b) and 0 < int((a == 0).sum()) < a.numel()
+            ga, = torch.autograd.grad(a.square().sum(), z)
+            gb, = torch.autograd.grad(b.square().sum(), z)
+            assert torch.equal(ga, gb)

@@ -1,10 +1,11 @@
 """The port's spans and counters on the CPU (``utils/profiling.py:span``):
 under a running ``torch.profiler`` a serving call, a per-epoch ``fit`` with
-a checkpointer, a fused ``fit`` and a TARGCN serving call put each of their
-spans into the exported chrome trace under its parent; with no profiler
-running ``span`` hands out one shared no-op context and nothing is
-recorded; the counters count ``predict_logits`` calls, train steps and the
-frames TARGCN's graph-GRU layers step through."""
+a checkpointer, a fused ``fit``, a TARGCN serving call and a musa train
+step put each of their spans into the exported chrome trace under its
+parent; with no profiler running ``span`` hands out one shared no-op
+context and nothing is recorded; the counters count ``predict_logits``
+calls, train steps, the frames TARGCN's graph-GRU layers step through and
+the branches musa's DropGraph masks."""
 
 import dataclasses
 import json
@@ -17,8 +18,9 @@ from torch.profiler import ProfilerActivity, profile
 
 from fall_multimodal_tpu_torch.configs import load_config, preset_path
 from fall_multimodal_tpu_torch.data import make_synthetic, split_dataset, to_device
-from fall_multimodal_tpu_torch.data.pipeline import gather_batch
+from fall_multimodal_tpu_torch.data.pipeline import DeviceData, gather_batch
 from fall_multimodal_tpu_torch.models.init import seeded_model
+from fall_multimodal_tpu_torch.models.musa import _DropGraphBlock
 from fall_multimodal_tpu_torch.models.targcn import GraphGRUCell
 from fall_multimodal_tpu_torch.serve import Predictor
 from fall_multimodal_tpu_torch.train import build_optimizer, create_train_state, fit
@@ -41,6 +43,8 @@ PARENT = {
     "targcn.recurrence": "predict.launch", "targcn.transformer": "predict.launch",
     "targcn.head": "predict.launch",
 }
+# a musa train step's spans, each directly inside the step's forward
+MUSA_PARENT = dict.fromkeys(("musa.graph", "musa.temporal", "musa.dropgraph"), "step.forward")
 
 
 def _flagship(**train):
@@ -71,10 +75,10 @@ def _windows(n, seed=0):
             rng.normal(size=(n, 30, 4)).astype(np.float32))
 
 
-def _port_spans(tmp_path, work):
+def _port_spans(tmp_path, work, known=PARENT):
     """``(name, start, end)`` of every port span in the chrome trace of a
     CPU profiler around ``work()``, and each one's innermost enclosing port
-    span (None at the top)."""
+    span (None at the top); ``known`` names the port spans."""
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         work()
     path = os.path.join(tmp_path, "trace.json")
@@ -83,7 +87,7 @@ def _port_spans(tmp_path, work):
         events = json.load(fh)["traceEvents"]
     spans = sorted(((e["name"], e["ts"], e["ts"] + e["dur"]) for e in events
                     if e.get("ph") == "X" and e.get("cat") == "user_annotation"
-                    and e["name"] in PARENT), key=lambda s: (s[1], -s[2]))
+                    and e["name"] in known), key=lambda s: (s[1], -s[2]))
     parents = []
     for name, s, e in spans:
         around = [o for o in spans if o[1] <= s and e <= o[2] and o != (name, s, e)]
@@ -229,3 +233,48 @@ def test_the_counters_count_calls_and_steps(predictor):
     step = make_train_step(softmax_before_ce=cfg.model.softmax_output)
     step(state, gather_batch(data, torch.as_tensor(idx[0])))
     assert make_train_step.steps - steps == 4
+
+
+def _musa_state():
+    cfg = load_config(preset_path("musa_harup"), overrides={"model.kwargs.embed_dim": 8})
+    state = create_train_state(cfg, build_optimizer(cfg), seed=0, device="cpu")
+    rng = np.random.default_rng(4)
+    batch = DeviceData(torch.from_numpy(rng.normal(size=(4, 30, 14, 3)).astype(np.float32)),
+                       torch.eye(11)[torch.arange(4)], torch.zeros(4, 1, 1))
+    return state, batch
+
+
+def test_a_musa_train_step_records_its_spans_with_none_inside_another(tmp_path):
+    state, batch = _musa_state()
+    step = make_train_step()
+    spans, parents = _port_spans(tmp_path, lambda: step(state, batch),
+                                 known={**PARENT, **MUSA_PARENT})
+    names = [s[0] for s in spans]
+    # per stream: the graph conv; two separable blocks and the SepTCN tail;
+    # DropGraph of the graph conv's and both separable blocks' two branches
+    assert names.count("musa.graph") == 2
+    assert names.count("musa.temporal") == 6
+    assert names.count("musa.dropgraph") == 6
+    for (name, _, _), parent in zip(spans, parents):
+        if name in MUSA_PARENT:
+            assert parent == MUSA_PARENT[name], (name, parent)
+
+
+def test_the_dropgraph_counter_counts_twelve_branches_a_train_forward_and_none_in_eval():
+    state, batch = _musa_state()
+    draws = _DropGraphBlock.draws
+    make_train_step()(state, batch)
+    assert _DropGraphBlock.draws - draws == 12            # 3 blocks x 2 branches x 2 streams
+    state.model.eval()
+    with torch.no_grad():
+        state.model(batch.features)
+    assert _DropGraphBlock.draws - draws == 12
+
+
+def test_without_a_profiler_a_musa_train_step_records_nothing():
+    state, batch = _musa_state()
+    assert not torch.autograd._profiler_enabled()
+    make_train_step()(state, batch)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        pass
+    assert not {e.key for e in prof.key_averages()} & set(MUSA_PARENT)
